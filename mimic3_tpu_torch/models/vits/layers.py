@@ -1,0 +1,112 @@
+"""Primitive layers for the VITS stack (PyTorch layout, functional).
+
+Counterpart of ``mimic3_tpu/models/vits/layers.py``.  Conventions:
+
+- activations: ``[B, C, T]``,
+- masks: ``[B, 1, T]`` float (1.0 = valid),
+- conv weights: ``[Cout, Cin/groups, K]`` (torch ``Conv1d``),
+- transposed-conv weights: ``[Cin, Cout, K]`` (torch ``ConvTranspose1d``),
+- parameters live in nested dicts keyed by torch-style module names, with
+  weight norm already folded (``runtime/convert.py``).
+"""
+
+from __future__ import annotations
+
+import typing
+
+import torch
+import torch.nn.functional as F
+
+Params = typing.Dict[str, typing.Any]
+
+LRELU_SLOPE = 0.1
+
+
+def conv1d(
+    x: torch.Tensor,
+    p: Params,
+    *,
+    stride: int = 1,
+    padding: int = 0,
+    dilation: int = 1,
+    groups: int = 1,
+    dtype: typing.Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """1-D convolution (torch ``Conv1d`` semantics), computed in x's dtype."""
+    if dtype is not None:
+        x = x.to(dtype)
+    bias = p.get("bias")
+    return F.conv1d(
+        x,
+        p["weight"].to(x.dtype),
+        None if bias is None else bias.to(x.dtype),
+        stride=stride,
+        padding=padding,
+        dilation=dilation,
+        groups=groups,
+    )
+
+
+def conv_transpose1d(
+    x: torch.Tensor,
+    p: Params,
+    *,
+    stride: int,
+    padding: int = 0,
+    dtype: typing.Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """1-D transposed convolution; output length
+    ``(T-1)*stride - 2*padding + K``."""
+    if dtype is not None:
+        x = x.to(dtype)
+    bias = p.get("bias")
+    return F.conv_transpose1d(
+        x,
+        p["weight"].to(x.dtype),
+        None if bias is None else bias.to(x.dtype),
+        stride=stride,
+        padding=padding,
+    )
+
+
+def layer_norm(
+    x: torch.Tensor, p: Params, eps: float = 1e-5
+) -> torch.Tensor:
+    """LayerNorm over the channel axis (dim 1), computed in float32."""
+    y = F.layer_norm(
+        x.float().transpose(1, 2),
+        (x.shape[1],),
+        p["gamma"].float(),
+        p["beta"].float(),
+        eps,
+    )
+    return y.transpose(1, 2).to(x.dtype)
+
+
+def embedding(ids: torch.Tensor, p: Params) -> torch.Tensor:
+    """Token embedding lookup: ids ``[B, T]`` -> ``[B, T, C]``."""
+    return F.embedding(ids.long(), p["weight"])
+
+
+def leaky_relu(
+    x: torch.Tensor, slope: float = LRELU_SLOPE
+) -> torch.Tensor:
+    return torch.where(x >= 0, x, x * slope)
+
+
+def fused_add_tanh_sigmoid_multiply(
+    x: torch.Tensor, g: torch.Tensor, channels: int
+) -> torch.Tensor:
+    """WaveNet gate: ``tanh(a) * sigmoid(b)`` over the summed halves."""
+    summed = x + g
+    return torch.tanh(summed[:, :channels]) * torch.sigmoid(
+        summed[:, channels:]
+    )
+
+
+def sequence_mask(
+    lengths: torch.Tensor, max_length: int
+) -> torch.Tensor:
+    """``[B, 1, T]`` float mask from lengths."""
+    pos = torch.arange(max_length, device=lengths.device)
+    return (pos[None, :] < lengths[:, None]).float()[:, None, :]

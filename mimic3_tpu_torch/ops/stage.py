@@ -1,0 +1,392 @@
+"""Fused HiFi-GAN MRF stage: hand-written CUDA kernel + plain version.
+
+Replaces the Pallas TPU kernel ``mimic3_tpu/ops/stage.py::
+hifigan_stage_fused``.  One launch computes a whole multi-receptive-field
+stage — the mean over the ResBlock1s (kernels 3/7/11, dilations 1/3/5,
+two convs per step, residual adds) — optionally with the preceding
+``lrelu + ConvTranspose1d`` upsampler fused before it and, on the last
+stage, ``tanh(conv_post(lrelu(y)))`` fused after it so that only the
+float32 waveform is written.
+
+Activations use the port's ``[B, C, T]`` layout.  The kernel source is
+``mimic3_tpu_torch/csrc/stage.cu``; it is compiled with ``nvcc`` at first
+use into ``build/mimic3_tpu_torch/`` (keyed by a hash of the source) and
+bound through ``ctypes``.  Nothing is built when this module is imported.
+
+For a CPU tensor :func:`hifigan_stage_fused` runs
+:func:`hifigan_stage_plain`; for a CUDA tensor it launches the kernel or
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import typing
+from dataclasses import dataclass
+from pathlib import Path
+
+import torch
+
+from ..models.vits.layers import (
+    LRELU_SLOPE,
+    Params,
+    conv1d,
+    conv_transpose1d,
+    leaky_relu,
+)
+
+_PACKAGE_DIR = Path(__file__).resolve().parents[1]
+SOURCE = _PACKAGE_DIR / "csrc" / "stage.cu"
+BUILD_DIR = _PACKAGE_DIR.parent / "build" / "mimic3_tpu_torch"
+
+# channel counts the kernel is instantiated for (csrc/stage.cu)
+SUPPORTED_CHANNELS = (8, 16, 32, 64)
+# dynamic shared memory one block may use on Hopper
+_MAX_SMEM_BYTES = 232448
+_TILES = (256, 128, 64, 32)  # time tiles tried, largest first
+
+# kernel launches since the last reset (read by chip_smoke.py)
+launches = 0
+
+_LIB: typing.Optional[ctypes.CDLL] = None
+_LIB_LOCK = threading.Lock()
+
+
+# ---------------------------------------------------------------------------
+# Build and bind
+# ---------------------------------------------------------------------------
+
+
+def _find_nvcc() -> str:
+    """nvcc on PATH, else under $CUDA_HOME (default /usr/local/cuda)."""
+    nvcc = shutil.which("nvcc")
+    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    if nvcc is None and (home / "bin" / "nvcc").is_file():
+        nvcc = str(home / "bin" / "nvcc")
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found: the fused stage kernel cannot be built"
+        )
+    return nvcc
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"libstage_{digest}.so"
+
+
+def build_library() -> ctypes.CDLL:
+    """Compile ``csrc/stage.cu`` for sm_90a (once per source hash) and
+    load it.  Raises if nvcc is missing or the build fails."""
+    global _LIB
+    with _LIB_LOCK:
+        if _LIB is not None:
+            return _LIB
+        out = library_path()
+        if not out.is_file():
+            nvcc = _find_nvcc()
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            cmd = [
+                nvcc,
+                "-gencode", "arch=compute_90a,code=sm_90a",
+                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                "-Xptxas", "-v",
+                "-o", str(tmp), str(SOURCE),
+            ]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            # ptxas -v: registers, shared memory and spills per kernel
+            out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"building {SOURCE.name} failed:\n{proc.stderr}"
+                )
+            os.replace(tmp, out)
+        lib = ctypes.CDLL(str(out))
+        fn = lib.hifigan_stage_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_void_p] * 5  # x, out, w, b, plan
+            + [ctypes.c_int] * 14
+            + [ctypes.c_void_p]  # stream
+        )
+        _LIB = lib
+        return lib
+
+
+# ---------------------------------------------------------------------------
+# Weights, prepared once per voice
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class StageWeights:
+    """One stage's conv weights laid out for the kernel.
+
+    ``w``: float32, every conv as ``[Cin, K, Cout]`` back to back in
+    launch order (ups, then per resblock per step conv1/conv2, then
+    post); ``b``: float32 biases; ``plan``: int32 ``[n_convs, 4]`` rows
+    of (weight offset, bias offset, K, dilation).
+    """
+
+    w: torch.Tensor
+    b: torch.Tensor
+    plan: torch.Tensor
+    channels: int
+    in_channels: int
+    n_res: int
+    n_steps: int
+    halo: int
+    ups_kernel: int  # 0 = no fused upsampler
+    ups_stride: int
+    ups_padding: int
+    has_post: bool
+
+
+def stage_halo(
+    kernel_sizes: typing.Sequence[int],
+    dilations: typing.Sequence[typing.Sequence[int]],
+    post_kernel: int = 0,
+) -> int:
+    """Receptive half-width of the stage (+ the post conv), in samples."""
+    rf = max(
+        sum((k - 1) // 2 * d + (k - 1) // 2 for d in ds)
+        for k, ds in zip(kernel_sizes, dilations)
+    )
+    return rf + (post_kernel - 1) // 2 if post_kernel else rf
+
+
+def pack_stage_weights(
+    resblock_params: typing.Sequence[Params],
+    kernel_sizes: typing.Sequence[int],
+    dilations: typing.Sequence[typing.Sequence[int]],
+    *,
+    ups_params: typing.Optional[Params] = None,
+    ups_stride: int = 2,
+    ups_padding: typing.Optional[int] = None,
+    post_params: typing.Optional[Params] = None,
+    device: typing.Optional[torch.device] = None,
+) -> StageWeights:
+    """Lay out (and cast to float32) one stage's weights for the kernel."""
+    ws: typing.List[torch.Tensor] = []
+    bs: typing.List[torch.Tensor] = []
+    plan: typing.List[typing.Tuple[int, int, int, int]] = []
+    w_off = b_off = 0
+
+    def add(weight_cik: torch.Tensor, bias, c_out: int, dil: int) -> None:
+        nonlocal w_off, b_off
+        w = weight_cik.float().contiguous().reshape(-1)
+        b = (
+            torch.zeros(c_out) if bias is None else bias.float().reshape(-1)
+        )
+        plan.append((w_off, b_off, weight_cik.shape[1], dil))
+        ws.append(w.cpu())
+        bs.append(b.cpu())
+        w_off += w.numel()
+        b_off += c_out
+
+    n_steps = len(dilations[0])
+    if any(len(d) != n_steps for d in dilations):
+        raise ValueError("resblocks must share the number of dilations")
+    channels = resblock_params[0]["convs1"]["0"]["weight"].shape[0]
+    in_channels = channels
+    ups_kernel = 0
+    if ups_params is not None:
+        uw = ups_params["weight"]  # [Cin, Cout, K]
+        in_channels, c_out, ups_kernel = uw.shape
+        if c_out != channels:
+            raise ValueError(
+                f"upsampler emits {c_out} channels, stage has {channels}"
+            )
+        if ups_padding is None:
+            ups_padding = (ups_kernel - ups_stride) // 2
+        add(uw.permute(0, 2, 1), ups_params.get("bias"), channels, 1)
+    for rp, k, ds in zip(resblock_params, kernel_sizes, dilations):
+        for j, d in enumerate(ds):
+            for key, dil in (("convs1", d), ("convs2", 1)):
+                p = rp[key][str(j)]
+                if p["weight"].shape != (channels, channels, k):
+                    raise ValueError(
+                        f"{key}.{j} weight {tuple(p['weight'].shape)} "
+                        f"!= {(channels, channels, k)}"
+                    )
+                add(p["weight"].permute(1, 2, 0), p.get("bias"), channels, dil)
+    post_kernel = 0
+    if post_params is not None:
+        pw = post_params["weight"]  # [1, C, K]
+        if pw.shape[:2] != (1, channels):
+            raise ValueError(f"post conv {tuple(pw.shape)} does not fit")
+        post_kernel = pw.shape[2]
+        add(pw.permute(1, 2, 0), post_params.get("bias"), 1, 1)
+
+    return StageWeights(
+        w=torch.cat(ws).to(device),
+        b=torch.cat(bs).to(device),
+        plan=torch.tensor(plan, dtype=torch.int32).to(device),
+        channels=channels,
+        in_channels=in_channels,
+        n_res=len(kernel_sizes),
+        n_steps=n_steps,
+        halo=stage_halo(kernel_sizes, dilations, post_kernel),
+        ups_kernel=ups_kernel,
+        ups_stride=ups_stride if ups_kernel else 1,
+        ups_padding=ups_padding if ups_kernel else 0,
+        has_post=post_params is not None,
+    )
+
+
+def _pick_tile(weights: StageWeights) -> int:
+    """Largest time tile whose four f32 [C, tile + 2*halo] buffers (and
+    the upsampler's staged input) fit in one block's shared memory."""
+    c = weights.channels
+    for tile in _TILES:
+        length = tile + 2 * weights.halo
+        if 4 * c * length * 4 > _MAX_SMEM_BYTES:
+            continue
+        if weights.ups_kernel:
+            lin = (length + weights.ups_kernel - 2) // weights.ups_stride + 2
+            if weights.in_channels * lin > 2 * c * length:
+                continue
+        return tile
+    raise ValueError(
+        f"no time tile fits C={c}, halo={weights.halo} in shared memory"
+    )
+
+
+# ---------------------------------------------------------------------------
+# Plain version and wrapper
+# ---------------------------------------------------------------------------
+
+
+def hifigan_stage_plain(
+    resblock_params: typing.Sequence[Params],
+    x: torch.Tensor,
+    kernel_sizes: typing.Sequence[int],
+    dilations: typing.Sequence[typing.Sequence[int]],
+    *,
+    ups_params: typing.Optional[Params] = None,
+    ups_stride: int = 2,
+    ups_padding: typing.Optional[int] = None,
+    post_params: typing.Optional[Params] = None,
+) -> torch.Tensor:
+    """The stage as plain PyTorch ops (same function as the kernel)."""
+    from ..models.vits.hifigan import resblock1
+
+    if ups_params is not None:
+        if ups_padding is None:
+            ups_padding = (ups_params["weight"].shape[2] - ups_stride) // 2
+        x = conv_transpose1d(
+            leaky_relu(x, LRELU_SLOPE),
+            ups_params,
+            stride=ups_stride,
+            padding=ups_padding,
+        )
+    y = None
+    for rp, k, ds in zip(resblock_params, kernel_sizes, dilations):
+        out = resblock1(rp, x, k, ds)
+        y = out if y is None else y + out
+    y = y / len(kernel_sizes)
+    if post_params is None:
+        return y
+    y = leaky_relu(y.float(), LRELU_SLOPE)
+    pad = (post_params["weight"].shape[2] - 1) // 2
+    return torch.tanh(
+        conv1d(y, post_params, padding=pad, dtype=torch.float32)
+    )[:, 0]
+
+
+def hifigan_stage_fused(
+    resblock_params: typing.Sequence[Params],
+    x: torch.Tensor,
+    kernel_sizes: typing.Sequence[int],
+    dilations: typing.Sequence[typing.Sequence[int]],
+    *,
+    ups_params: typing.Optional[Params] = None,
+    ups_stride: int = 2,
+    ups_padding: typing.Optional[int] = None,
+    post_params: typing.Optional[Params] = None,
+    weights: typing.Optional[StageWeights] = None,
+) -> torch.Tensor:
+    """Whole MRF stage in one kernel launch.
+
+    ``x``: ``[B, C, T]`` (``[B, Cin, T_in]`` before the upsampler when
+    ``ups_params`` is given), float32 or bfloat16, contiguous.  Returns
+    the stage output ``[B, C, T]`` in x's dtype, or with ``post_params``
+    the float32 waveform ``[B, T]``.  ``weights`` is the stage packed by
+    :func:`pack_stage_weights` for x's device (built here when omitted).
+    """
+    global launches
+    kwargs = dict(
+        ups_params=ups_params,
+        ups_stride=ups_stride,
+        ups_padding=ups_padding,
+        post_params=post_params,
+    )
+    if x.device.type == "cpu":
+        return hifigan_stage_plain(
+            resblock_params, x, kernel_sizes, dilations, **kwargs
+        )
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if weights is None:
+        weights = pack_stage_weights(
+            resblock_params, kernel_sizes, dilations,
+            device=x.device, **kwargs,
+        )
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"unsupported dtype {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    if x.dim() != 3 or x.shape[1] != weights.in_channels:
+        raise ValueError(
+            f"x {tuple(x.shape)} does not match {weights.in_channels} "
+            "input channels"
+        )
+    if weights.channels not in SUPPORTED_CHANNELS:
+        raise ValueError(f"C={weights.channels} not in {SUPPORTED_CHANNELS}")
+    for t in (weights.w, weights.b, weights.plan):
+        if t.device != x.device:
+            raise ValueError("stage weights are on another device")
+    if weights.has_post != (post_params is not None) or bool(
+        weights.ups_kernel
+    ) != (ups_params is not None):
+        raise ValueError("stage weights were packed for other fusions")
+
+    batch, _, t_in = x.shape
+    if weights.ups_kernel:
+        t_out = (
+            (t_in - 1) * weights.ups_stride
+            - 2 * weights.ups_padding
+            + weights.ups_kernel
+        )
+    else:
+        t_out = t_in
+    if t_out <= 0:
+        raise ValueError(f"empty stage output for T_in={t_in}")
+    c = weights.channels
+    if weights.has_post:
+        out = torch.empty(batch, t_out, device=x.device, dtype=torch.float32)
+    else:
+        out = torch.empty(batch, c, t_out, device=x.device, dtype=x.dtype)
+
+    tile = _pick_tile(weights)
+    lib = build_library()
+    err = lib.hifigan_stage_launch(
+        x.data_ptr(), out.data_ptr(),
+        weights.w.data_ptr(), weights.b.data_ptr(), weights.plan.data_ptr(),
+        batch, c, weights.in_channels, t_in, t_out,
+        weights.n_res, weights.n_steps,
+        weights.ups_kernel, weights.ups_stride, weights.ups_padding,
+        int(weights.has_post), tile, weights.halo,
+        int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"hifigan_stage kernel launch failed: cuda error {err}")
+    launches += 1
+    return out

@@ -1,0 +1,113 @@
+"""The port's CUDA kernel on the card, against its plain PyTorch version.
+
+Marked ``gpu``: every test skips without an NVIDIA card, since the kernel
+has no CPU mode.  This file imports no JAX, so it runs on a machine that
+has only PyTorch:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_port_cuda.py
+
+Bars: float32 ``atol=2e-4, rtol=1e-3`` with TF32 off on the plain side;
+bfloat16 correlation > 0.999 (the plain side rounds every conv output to
+bf16, the kernel keeps f32 inside).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mimic3_tpu_torch.ops import stage as tstage
+from mimic3_tpu_torch.runtime.convert import to_torch_params
+
+KERNELS = (3, 7, 11)
+DILATIONS = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA kernel has no CPU mode)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _stage(rng, c, c_in, post, device):
+    """Port-layout stage kwargs (resblocks, optional ups / post)."""
+    tree = {
+        "resblocks": {
+            str(r): {
+                key: {
+                    str(j): {
+                        "weight": rng.randn(k, c, c).astype(np.float32) * 0.1,
+                        "bias": rng.randn(c).astype(np.float32) * 0.1,
+                    }
+                    for j in range(3)
+                }
+                for key in ("convs1", "convs2")
+            }
+            for r, k in enumerate(KERNELS)
+        }
+    }
+    if c_in:
+        tree["ups"] = {"0": {
+            "weight": rng.randn(4, c_in, c).astype(np.float32) * 0.1,
+            "bias": rng.randn(c).astype(np.float32) * 0.1,
+        }}
+    if post:
+        tree["conv_post"] = {
+            "weight": rng.randn(7, c, 1).astype(np.float32) * 0.1
+        }
+    port = to_torch_params(tree, device)
+    kw = {"resblock_params": [port["resblocks"][str(r)] for r in range(3)]}
+    if c_in:
+        kw.update(ups_params=port["ups"]["0"], ups_stride=2, ups_padding=1)
+    if post:
+        kw["post_params"] = port["conv_post"]
+    return kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "c,c_in,post,batch,t",
+    [
+        (32, 64, True, 2, 1000),  # last decoder stage, ragged tail
+        (32, 64, False, 1, 300),  # ups only
+        (32, None, True, 2, 513),  # post only
+        (64, None, False, 2, 777),  # C=64 stage alone, multi-tile
+        (16, 32, False, 3, 129),
+        (8, 16, True, 1, 5),  # shorter than the halo
+    ],
+)
+def test_kernel_matches_plain(cuda, dtype, c, c_in, post, batch, t):
+    rng = np.random.RandomState(c + t)
+    kw = _stage(rng, c, c_in, post, cuda)
+    rb = kw.pop("resblock_params")
+    x = torch.from_numpy(
+        rng.randn(batch, c_in or c, t).astype(np.float32)
+    ).to(cuda, getattr(torch, dtype))
+    ref = tstage.hifigan_stage_plain(rb, x, KERNELS, DILATIONS, **kw)
+    before = tstage.launches
+    got = tstage.hifigan_stage_fused(rb, x, KERNELS, DILATIONS, **kw)
+    torch.cuda.synchronize()
+    assert tstage.launches == before + 1
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    ref, got = ref.float().cpu().numpy(), got.float().cpu().numpy()
+    assert np.isfinite(got).all()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, ref, atol=2e-4, rtol=1e-3)
+    else:
+        assert np.corrcoef(got.ravel(), ref.ravel())[0, 1] > 0.999
+
+
+@pytest.mark.gpu
+def test_kernel_rejects_unsupported_input(cuda):
+    rng = np.random.RandomState(0)
+    kw = _stage(rng, 32, None, False, cuda)
+    rb = kw.pop("resblock_params")
+    x = torch.zeros(1, 32, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError):
+        tstage.hifigan_stage_fused(rb, x, KERNELS, DILATIONS)
+    x = torch.zeros(1, 64, 32, device=cuda).transpose(1, 2)
+    with pytest.raises(ValueError):
+        tstage.hifigan_stage_fused(rb, x, KERNELS, DILATIONS)
