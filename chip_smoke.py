@@ -1,10 +1,20 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Builds the port's CUDA kernel from this checkout, holds it against its
-plain PyTorch version at the decoder's shapes, then drives the port's main
-path — engine -> voice -> session -> VITS -> WAV, in process and through
-the CLI — on a full-width ``*_low`` voice with random weights made from a
-seed, and checks that the path went through the kernel.
+Builds the port's CUDA kernels from this checkout (one nvcc per source,
+started together) and holds each against its plain PyTorch version at
+the shapes its path gives it.  Then drives the port's paths on a
+full-width ``*_low`` voice with random weights made from a seed, each
+with the kernel launch counts set to 0 just before it and read just
+after:
+
+- the main path: engine -> voice -> session -> VITS -> WAV, in process
+  and through the CLI;
+- the resblock profiling entry point
+  (``python -m mimic3_tpu_torch.scripts.profile_resblock``);
+- streaming: ``synthesize_ids_chunked`` and ``stream_start_batch``;
+- the HTTP server, in process on a background thread: preload with
+  warmup, a WAV, a low-latency stream, a burst of concurrent requests, a
+  profile capture, and no signature first run after the warmup.
 
     python3 chip_smoke.py
 
@@ -23,9 +33,13 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
+import urllib.parse
+import urllib.request
 import wave
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -39,11 +53,27 @@ BATCH_TEXTS = [
     "The result is a spectrum of light appearing in the sky.",
     "It takes the form of a multicoloured circular arc.",
 ]
+# one long sentence: several streaming windows at about one frame per
+# phoneme (the random voice's durations)
+STREAM_TEXT = (
+    "A rainbow is a meteorological phenomenon that is caused by "
+    "reflection, refraction and dispersion of light in water droplets "
+    "resulting in a spectrum of light appearing in the sky, and it takes "
+    "the form of a multicoloured circular arc"
+)
 KERNELS = (3, 7, 11)
 DILATIONS = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
 # frame buckets of the kernel checks: 128 is the one the random voice's
 # sentences decode in (about one frame per phoneme), 256 a longer sentence
 FRAME_BUCKETS = (128, 256)
+# the server's low-latency streaming grid (mimic3_tpu/server/app.py)
+STREAM_GRID = dict(chunk_frames=128, overlap=64, first_chunk_frames=32)
+F32_BAR = "2e-4 + 1e-3*|ref|"
+# bf16 bars: the correlation of the outputs, and, for a residual step
+# (out = x + branch), of the branches out - x, which a dropped bias or
+# tap moves far more than it moves the output
+BF16_CORR = 0.999
+BF16_BRANCH_CORR = 0.9999
 
 
 def say(phase: str, msg: str) -> None:
@@ -59,8 +89,59 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def cuda_ms(fn, iters: int = 20) -> float:
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def tensor_corr(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(torch.corrcoef(torch.stack([a.ravel(), b.ravel()]))[0, 1])
+
+
+def compare(name, got, ref, dtype, kernel, plain, iters=20, residual=None):
+    """Hold a kernel's output against plain; time both in turns (plain,
+    kernel, kernel, plain).  For a residual step, ``residual`` is its
+    input x.  Returns (max_abs_err, ms, plain_ms)."""
+    got, ref = got.float(), ref.float()
+    torch.cuda.synchronize()
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: bad output {tuple(got.shape)}")
+    err = float((got - ref).abs().max())
+    if dtype == torch.float32:
+        if not bool(((got - ref).abs() <= 2e-4 + 1e-3 * ref.abs()).all()):
+            raise AssertionError(f"{name}: max abs diff {err} over the bar")
+        agree = f"max_abs_err={err:.3g} (bar {F32_BAR})"
+    else:
+        c = tensor_corr(got, ref)
+        if not c > BF16_CORR:
+            raise AssertionError(f"{name}: bf16 correlation {c}")
+        agree = f"corr={c:.6f} max_abs_err={err:.3g}"
+        if residual is not None:
+            x = residual.float()
+            cb = tensor_corr(got - x, ref - x)
+            if not cb > BF16_BRANCH_CORR:
+                raise AssertionError(f"{name}: bf16 branch correlation {cb}")
+            agree += f" branch_corr={cb:.6f} (bar {BF16_BRANCH_CORR})"
+    p1 = cuda_ms(plain, iters)
+    k1 = cuda_ms(kernel, iters)
+    k2 = cuda_ms(kernel, iters)
+    p2 = cuda_ms(plain, iters)
+    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    say("kernel", f"{name} {str(dtype)[6:]}: {agree}; kernel {ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms")
+    return err, ms, plain_ms
+
+
 # ---------------------------------------------------------------------------
-# phase 3 helpers
+# phase 3: the stage kernel
 # ---------------------------------------------------------------------------
 
 
@@ -99,21 +180,7 @@ def stage_inputs(rng, c, c_in, post, device):
     return [port["resblocks"][str(r)] for r in range(3)], kw
 
 
-def cuda_ms(fn, iters: int = 20) -> float:
-    for _ in range(3):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def check_kernel(name, rng, c, c_in, post, batch, t, dtype):
-    """Kernel vs plain on the card; returns (max_abs_err, ms, plain_ms)."""
+def check_stage(name, rng, c, c_in, post, batch, t, dtype):
     from mimic3_tpu_torch.ops import stage
 
     dev = torch.device("cuda")
@@ -131,36 +198,48 @@ def check_kernel(name, rng, c, c_in, post, batch, t, dtype):
     def plain():
         return stage.hifigan_stage_plain(rb, x, KERNELS, DILATIONS, **kw)
 
-    got = kernel().float()
-    ref = plain().float()
-    torch.cuda.synchronize()
-    if got.shape != ref.shape or not torch.isfinite(got).all():
-        raise AssertionError(f"{name}: bad output {tuple(got.shape)}")
-    err = float((got - ref).abs().max())
-    if dtype == torch.float32:
-        bound = 2e-4 + 1e-3 * ref.abs()
-        if not bool(((got - ref).abs() <= bound).all()):
-            raise AssertionError(f"{name}: max abs diff {err} over the bar")
-        agree = f"max_abs_err={err:.3g} (bar 2e-4 + 1e-3*|ref|)"
-    else:
-        corr = float(np.corrcoef(got.cpu().numpy().ravel(),
-                                 ref.cpu().numpy().ravel())[0, 1])
-        if not corr > 0.999:
-            raise AssertionError(f"{name}: bf16 correlation {corr}")
-        agree = f"corr={corr:.6f} max_abs_err={err:.3g}"
-    # in turns: plain, kernel, kernel, plain
-    p1 = cuda_ms(plain)
-    k1 = cuda_ms(kernel)
-    k2 = cuda_ms(kernel)
-    p2 = cuda_ms(plain)
-    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    say("kernel", f"{name} x={tuple(x.shape)} {str(dtype)[6:]}: {agree}; "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    return err, ms, plain_ms
+    return compare(f"stage: {name} x={tuple(x.shape)}", kernel(), plain(),
+                   dtype, kernel, plain)
 
 
 # ---------------------------------------------------------------------------
-# phases 4-7 helpers
+# phase 4: the resblock kernel
+# ---------------------------------------------------------------------------
+
+
+def check_resblock(rng, c, t, b, k, d, dtype, bias=True, iters=20):
+    from mimic3_tpu_torch.ops import resblock
+
+    dev = torch.device("cuda")
+    bound = 1.0 / np.sqrt(c * k)
+
+    def uniform(*shape):
+        return torch.from_numpy(
+            rng.uniform(-bound, bound, shape).astype(np.float32)
+        ).to(dev)
+
+    w1, w2 = uniform(c, c, k), uniform(c, c, k)
+    b1, b2 = (uniform(c), uniform(c)) if bias else (None, None)
+    x = torch.from_numpy(rng.randn(b, c, t).astype(np.float32)).to(dev, dtype)
+    packed = resblock.pack_subblock_weights(w1, b1, w2, b2, dtype, dev)
+    kw = dict(kernel_size=k, dilation=d)
+
+    def kernel():
+        return resblock.fused_resblock_subblock(
+            x, w1, b1, w2, b2, weights=packed, **kw
+        )
+
+    def plain():
+        return resblock.resblock_subblock_plain(x, w1, b1, w2, b2, **kw)
+
+    name = (f"resblock: x={tuple(x.shape)} K={k} d={d}"
+            + ("" if bias else " no bias"))
+    return compare(name, kernel(), plain(), dtype, kernel, plain, iters,
+                   residual=x)
+
+
+# ---------------------------------------------------------------------------
+# helpers of the paths
 # ---------------------------------------------------------------------------
 
 
@@ -176,20 +255,32 @@ def parse_wav(data: bytes) -> np.ndarray:
     return audio
 
 
+def voice_copy(voice: Path, dest: Path, **tpu) -> Path:
+    """A voice directory sharing ``voice``'s weights with other ``tpu``
+    settings in its config."""
+    dest.mkdir(parents=True)
+    for name in ("phonemes.txt", "VERSION"):
+        shutil.copy(voice / name, dest / name)
+    os.symlink(voice / "generator.npz", dest / "generator.npz")
+    config = json.loads((voice / "config.json").read_text())
+    config["tpu"].update(tpu)
+    (dest / "config.json").write_text(json.dumps(config))
+    return dest
+
+
 def make_voices(root: Path):
-    """Full-width test voice, plus a copy whose config keeps every decoder
-    stage on the plain path (the end-to-end reference)."""
+    """The full-width test voice; a copy whose decoder stages all take
+    the plain path (the end-to-end reference); and a copy with a serving
+    bucket grid cut to what the server phase sends, so its warmup runs
+    dozens of signatures rather than hundreds."""
     from mimic3_tpu_torch.runtime.testvoice import create_test_voice
 
     voice = create_test_voice(root / "en_US" / "test_low", seed=1234)
-    plain = root / "en_US" / "plain_low"
-    plain.mkdir(parents=True)
-    for name in ("phonemes.txt", "VERSION"):
-        shutil.copy(voice / name, plain / name)
-    os.symlink(voice / "generator.npz", plain / "generator.npz")
-    config = json.loads((voice / "config.json").read_text())
-    config["tpu"]["pallas_stage_max_channels"] = 0
-    (plain / "config.json").write_text(json.dumps(config))
+    plain = voice_copy(voice, root / "en_US" / "plain_low",
+                       pallas_stage_max_channels=0)
+    voice_copy(voice, root / "en_US" / "serve_low",
+               text_buckets=[32, 64, 128, 256], frame_buckets=[128, 256, 512],
+               batch_buckets=[1, 2, 4])
     return voice, plain
 
 
@@ -218,17 +309,341 @@ def time_session(session, batches, runs: int):
     return wall, audio_sec / wall
 
 
-def main() -> int:
-    # -- 1. environment ------------------------------------------------------
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device visible: this smoke run needs one")
+def http(base, path, data=None, timeout=300):
+    req = urllib.request.Request(
+        base + path, data=data, method="POST" if data is not None else "GET"
+    )
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        if r.status != 200:
+            raise AssertionError(f"{path}: HTTP {r.status}")
+        return r.read()
+
+
+# ---------------------------------------------------------------------------
+# the paths
+# ---------------------------------------------------------------------------
+
+
+def main_path(root, voice_dir, plain_dir, card_line):
+    """Engine, batch and CLI (phases 6-8).  Returns the stage launches."""
     from mimic3_tpu_torch.engine import Mimic3Settings, Mimic3TextToSpeechSystem
     from mimic3_tpu_torch.ops import stage
     from mimic3_tpu_torch.runtime.voice import load_from_directory
 
+    stage.launches = 0
+    det = Mimic3TextToSpeechSystem(Mimic3Settings(
+        voices_directories=[str(root)], use_deterministic_compute=True,
+        noise_scale=0.0, noise_w=0.0,
+    ))
+    det.voice = "en_US/test_low"
+    det_wav = parse_wav(det.text_to_wav(TEXT))
+    n_det = stage.launches
+    default = Mimic3TextToSpeechSystem(
+        Mimic3Settings(voices_directories=[str(root)], seed=7)
+    )
+    default.voice = "en_US/test_low"
+    def_wav = parse_wav(default.text_to_wav(TEXT))
+    n_default = stage.launches - n_det
+    voice = load_from_directory(voice_dir)
+    batch_ids = [phoneme_ids(voice, t) for t in BATCH_TEXTS]
+    before = stage.launches
+    batch_out = voice.session.synthesize_ids_batch(batch_ids, seed=7)
+    n_batch = stage.launches - before
+    launches = stage.launches
+    say("main", f"deterministic WAV {det_wav.size} samples "
+        f"({n_det} launches), default bf16 WAV {def_wav.size} samples "
+        f"({n_default} launches), batch of 4 {[a.size for a in batch_out]}"
+        f" ({n_batch} launches)")
+    if min(n_det, n_default, n_batch) < 1:
+        raise AssertionError("the main path did not launch the stage kernel")
+    if not all(a.size and np.isfinite(a).all() for a in batch_out):
+        raise AssertionError("batch output empty or not finite")
+
+    # the same utterances with every stage on the plain path
+    ref_det = Mimic3TextToSpeechSystem(Mimic3Settings(
+        voices_directories=[str(root)], use_deterministic_compute=True,
+        noise_scale=0.0, noise_w=0.0,
+    ))
+    ref_det.voice = "en_US/plain_low"
+    ref_wav = parse_wav(ref_det.text_to_wav(TEXT))
+    plain_voice = load_from_directory(plain_dir)
+    plain_batch = plain_voice.session.synthesize_ids_batch(batch_ids, seed=7)
+    c_det = corr(det_wav, ref_wav)
+    c_batch = min(corr(a, b) for a, b in zip(batch_out, plain_batch))
+    say("check", f"kernel path vs plain path: deterministic f32 corr "
+        f"{c_det:.6f}, bf16 batch min corr {c_batch:.6f}")
+    if det_wav.size != ref_wav.size or not c_det >= 0.999:
+        raise AssertionError("deterministic audio disagrees with plain")
+    if [a.size for a in batch_out] != [a.size for a in plain_batch]:
+        raise AssertionError("batch lengths disagree with plain")
+    if not c_batch > 0.99:
+        raise AssertionError("bf16 batch audio disagrees with plain")
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "mimic3_tpu_torch.cli",
+         "--voices-dir", str(root), "--voice", "en_US/test_low",
+         "--deterministic"],
+        input=(TEXT + "\n").encode(), capture_output=True, cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=str(REPO)), timeout=600,
+    )
+    if proc.returncode != 0:
+        raise AssertionError(f"CLI failed:\n{proc.stderr.decode()[-3000:]}")
+    cli_wav = parse_wav(proc.stdout)
+    say("cli", f"WAV {cli_wav.size} samples at 22050 Hz, corr with the "
+        f"in-process WAV {corr(cli_wav, det_wav):.6f}")
+    if cli_wav.size != det_wav.size:
+        raise AssertionError("CLI WAV length differs from in-process")
+
+    for label, v in (("kernel", voice), ("plain", plain_voice)):
+        for batch in (1, 4):
+            wall, rate = time_session(v.session, batch_ids[:batch], 5)
+            say("time", f"{label} path, default mode, batch {batch}: "
+                f"{wall * 1000:.1f} ms per call, {rate:.1f} audio-s/s "
+                f"({card_line})")
+    return launches
+
+
+def profile_path():
+    """The resblock profiling entry point (phase 9).  Returns (launches,
+    its result)."""
+    from mimic3_tpu_torch.ops import resblock
+    from mimic3_tpu_torch.scripts import profile_resblock
+
+    resblock.launches = 0
+    result = profile_resblock.main(["--loops", "4"])
+    launches = resblock.launches
+    check = result["check"]
+    say("profile", f"B=16 T=65536 C=128 K=3 d=5 bf16: {launches} launches; "
+        f"kernel {result['kernel']['ms_per_subblock']:.3f} ms "
+        f"({result['kernel']['tflops']:.1f} TFLOP/s), plain "
+        f"{result['plain']['ms_per_subblock']:.3f} ms "
+        f"({result['plain']['tflops']:.1f} TFLOP/s); corr "
+        f"{check['corr']:.6f}, branch corr {check['branch_corr']:.6f}")
+    if launches < 1:
+        raise AssertionError("the profiling entry point did not launch")
+    if not (check["finite"] and check["corr"] > BF16_CORR
+            and check["branch_corr"] > BF16_BRANCH_CORR):
+        raise AssertionError(f"profiling entry point disagrees: {check}")
+    return launches, result
+
+
+def streaming_path(voice_dir, card_line):
+    """Chunked and batched streaming (phase 10).  Returns the stage
+    launches."""
+    from mimic3_tpu_torch.ops import stage
+    from mimic3_tpu_torch.runtime.voice import load_from_directory
+
+    voice = load_from_directory(voice_dir, deterministic=True)
+    session = voice.session
+    ids = phoneme_ids(voice, STREAM_TEXT)
+    batch_ids = [phoneme_ids(voice, t) for t in BATCH_TEXTS]
+    full = session.synthesize_ids(ids, noise_scale=0.0, noise_w=0.0)
+
+    def timed_stream():
+        """(chunks, ms to the first chunk, ms to the last)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen = session.synthesize_ids_chunked(
+            ids, noise_scale=0.0, noise_w=0.0, **STREAM_GRID
+        )
+        chunks = [next(gen)]
+        first_ms = (time.perf_counter() - t0) * 1000
+        chunks.extend(gen)
+        return chunks, first_ms, (time.perf_counter() - t0) * 1000
+
+    stage.launches = 0
+    chunks, cold_first, cold_total = timed_stream()
+    n_chunked = stage.launches
+    warm = [timed_stream()[1:] for _ in range(5)]
+    stream = np.concatenate(chunks)
+    c = corr(stream, full)
+    say("stream", f"{len(ids)} phonemes, {len(chunks)} chunks, "
+        f"{stream.size} samples (unchunked {full.size}); corr {c:.6f}, "
+        f"max abs diff {np.abs(stream - full).max():.3g} "
+        f"({n_chunked} stage launches)")
+    say("stream", f"time to first chunk {cold_first:.1f} ms on the first "
+        f"stream, median {np.median([w[0] for w in warm]):.1f} ms of the "
+        f"next 5; whole stream {cold_total:.1f} ms, then median "
+        f"{np.median([w[1] for w in warm]):.1f} ms ({card_line})")
+    if len(chunks) < 2 or stream.size != full.size or not c >= 0.999:
+        raise AssertionError("chunked stream disagrees with unchunked")
+
+    kw = dict(noise_scale=0.667, noise_w=0.8, seed=7, **STREAM_GRID)
+    before = stage.launches
+    batched = [np.concatenate(list(g))
+               for g in session.stream_start_batch(batch_ids, **kw)]
+    n_batched = stage.launches - before
+    worst = 1.0
+    for seq, got in zip(batch_ids, batched):
+        solo = np.concatenate(list(session.synthesize_ids_chunked(seq, **kw)))
+        if got.size != solo.size:
+            raise AssertionError("batched stream length differs from solo")
+        worst = min(worst, corr(got, solo))
+    say("stream", f"stream_start_batch of 4 against each alone: lengths "
+        f"{[a.size for a in batched]}, min corr {worst:.6f} "
+        f"({n_batched} stage launches)")
+    if not worst >= 0.999:
+        raise AssertionError("batched streams disagree with solo streams")
+    if min(n_chunked, n_batched) < 1:
+        raise AssertionError("streaming did not launch the stage kernel")
+    launches = stage.launches
+
+    # the warmed-bucket fallback: padded text and frame buckets against the
+    # natural ones (cuDNN may pick other algorithms for the padded shapes)
+    padded = load_from_directory(voice_dir, deterministic=True,
+                                 share_sessions=False).session
+    padded.warmup(text_buckets=(512,), frame_buckets=(512,))
+    got = padded.synthesize_ids(ids, noise_scale=0.0, noise_w=0.0)
+    fallbacks = padded.stats.fallbacks_snapshot()
+    diff = float(np.abs(got - full).max()) if got.size == full.size else None
+    say("stream", f"warmed-bucket fallback {sorted(fallbacks)}: max abs "
+        f"diff against the natural buckets {diff}")
+    if len(fallbacks) != 2 or diff is None or diff > 1e-4:
+        raise AssertionError("padded buckets disagree with natural ones")
+    return launches
+
+
+def server_path(root, card_line):
+    """The HTTP server in process (phase 11).  Returns the stage
+    launches of its requests (warmup and this script's own session calls
+    not counted)."""
+    from mimic3_tpu_torch.ops import stage
+    from mimic3_tpu_torch.server.__main__ import create_app
+
+    sys.path.insert(0, str(REPO / "tests"))
+    from test_torch_server_thread import ServerThread
+
+    key = "en_US/serve_low"
+    profile_dir = root / "profile"
+    app = create_app([
+        "--voices-dir", str(root), "--voice", key, "--preload-voice", key,
+        "--warmup", "--deterministic", "--max-batch", "4",
+        "--batch-delay-ms", "30", "--profile-dir", str(profile_dir),
+    ])
+    try:
+        stage.launches = 0
+        t0 = time.perf_counter()
+        app.preload()
+        say("server", f"preload + warmup {time.perf_counter() - t0:.1f} s "
+            f"({stage.launches} stage launches)")
+        # the session's chunks for each sentence, as the server's
+        # low-latency path asks for them, to hold the stream against
+        voice = app._catalog._get_or_load_voice(key)
+        expected = np.concatenate([
+            chunk
+            for words, _ in voice.text_to_phonemes(STREAM_TEXT)
+            for chunk in voice.session.synthesize_ids_chunked(
+                voice.phonemes_to_ids(words), noise_scale=0.0,
+                noise_w=0.0,
+                length_scale=voice.config.inference.length_scale,
+                **STREAM_GRID,
+            )
+        ])
+        expected = np.clip(expected * 32767.0 * 0.7, -32767,
+                           32767).astype(np.int16)
+        srv = ServerThread(app).start()
+        try:
+            stage.launches = 0
+            base = srv.base_url
+            t0 = time.perf_counter()
+            wav = parse_wav(http(base, f"/api/tts?voice={key}",
+                                 TEXT.encode()))
+            tts_ms = (time.perf_counter() - t0) * 1000
+            walls = []
+            for i in range(5):
+                t0 = time.perf_counter()
+                http(base, f"/api/tts?voice={key}&noCache=true",
+                     f"{TEXT} {i}".encode())
+                walls.append((time.perf_counter() - t0) * 1000)
+            say("server", f"POST /api/tts: WAV {wav.size} samples at 22050 "
+                f"Hz; first request {tts_ms:.1f} ms, median of the next 5 "
+                f"{np.median(walls):.1f} ms (batching window 30 ms; "
+                f"{card_line})")
+
+            query = urllib.parse.urlencode({
+                "text": STREAM_TEXT, "voice": key, "streaming": "true",
+                "streamingMode": "low-latency",
+            })
+            blob = http(base, f"/api/tts?{query}")
+            if blob[:4] != b"RIFF":
+                raise AssertionError("low-latency stream has no WAV header")
+            pcm = np.frombuffer(blob[44:], np.int16)
+            diff = int(np.abs(pcm.astype(np.int32) - expected).max()) \
+                if pcm.size == expected.size else None
+            say("server", f"GET low-latency stream: {pcm.size} samples "
+                f"(session chunks {expected.size}), max diff {diff} LSB")
+            if diff is None or diff > 1:
+                raise AssertionError("streamed PCM differs from the session's")
+
+            stats0 = json.loads(http(base, "/api/stats"))["scheduler"]
+            texts = [f"{t} Request {i}." for i, t in enumerate(BATCH_TEXTS)]
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(4) as pool:
+                wavs = list(pool.map(
+                    lambda t: parse_wav(http(
+                        base, f"/api/tts?voice={key}&noCache=true",
+                        t.encode(),
+                    )),
+                    texts,
+                ))
+            burst_ms = (time.perf_counter() - t0) * 1000
+            stats = json.loads(http(base, "/api/stats"))
+            batches = stats["scheduler"]["batches"] - stats0["batches"]
+            items = stats["scheduler"]["items"] - stats0["items"]
+            say("server", f"4 concurrent requests in {burst_ms:.1f} ms: "
+                f"{items} items in {batches} device batches "
+                f"({[w.size for w in wavs]} samples; {card_line})")
+            if items < 4 or not items > batches:
+                raise AssertionError("the concurrent burst was not batched")
+
+            # a capture with requests in flight: the trace holds kernels
+            traffic = threading.Thread(target=lambda: [
+                http(base, f"/api/tts?voice={key}&noCache=true",
+                     t.encode()) for t in texts
+            ])
+            traffic.start()
+            reply = json.loads(http(base, "/api/profile?seconds=1", b""))
+            traffic.join(timeout=300)
+            if traffic.is_alive():
+                raise AssertionError("requests during the capture hung")
+            # every request that synthesizes has been answered
+            launches = stage.launches
+            traces = sorted(Path(reply["profile_dir"]).glob("*.json"))
+            if not traces:
+                raise AssertionError("POST /api/profile wrote no trace")
+            events = json.loads(traces[-1].read_text())["traceEvents"]
+            n_kernels = sum(1 for e in events if e.get("cat") == "kernel")
+            say("server", f"POST /api/profile?seconds=1: {traces[-1].name}, "
+                f"{len(events)} events, {n_kernels} CUDA kernels")
+            if n_kernels < 1:
+                raise AssertionError("the profile holds no CUDA kernel")
+
+            voice_stats = json.loads(http(base, "/api/stats"))["voices"][key]
+            say("server", f"/api/stats: {voice_stats['jit_executables']} "
+                f"signatures run, hot_path_compiles "
+                f"{voice_stats['hot_path_compiles']}, bucket_fallbacks "
+                f"{voice_stats['bucket_fallbacks']}")
+            if voice_stats["hot_path_compiles"] != 0:
+                raise AssertionError("a signature ran first after warmup")
+        finally:
+            srv.stop()
+    finally:
+        app.shutdown()
+    say("server", f"{launches} stage launches by the requests")
+    if launches < 1:
+        raise AssertionError("the requests did not launch the stage kernel")
+    return launches
+
+
+def main() -> int:
+    # -- 1. environment ------------------------------------------------------
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device visible: this smoke run needs one")
+    from mimic3_tpu_torch.ops import build, resblock, stage
+
     card_line = card()
     nvcc = subprocess.run(
-        [stage._find_nvcc(), "--version"], capture_output=True, text=True,
+        [build.find_nvcc(), "--version"], capture_output=True, text=True,
         check=True,
     ).stdout.strip().splitlines()[-1]
     say("env", f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -237,129 +652,90 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    # -- 2. build ------------------------------------------------------------
+    # -- 2. build, one nvcc per source, together ---------------------------------
     t0 = time.perf_counter()
-    stage.build_library()
-    say("build", f"{stage.library_path().relative_to(REPO)} in "
-        f"{time.perf_counter() - t0:.1f} s")
-    log = stage.library_path().with_suffix(".log")
-    regs = sorted({ln.split(":", 1)[1].strip() for ln in
-                   log.read_text().splitlines() if "registers" in ln})
-    say("build", "ptxas: " + " | ".join(regs))
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(lambda m: m.build_library(), (stage, resblock)))
+    say("build", f"both kernels in {time.perf_counter() - t0:.1f} s")
+    for module in (stage, resblock):
+        log = module.library_path().with_suffix(".log")
+        regs = sorted({ln.split(":", 1)[1].strip() for ln in
+                       log.read_text().splitlines() if "registers" in ln})
+        say("build", f"{module.library_path().relative_to(REPO)} ptxas: "
+            + " | ".join(regs))
 
-    # -- 3. kernel against plain, on the card ----------------------------------
+    # -- 3. stage kernel against plain ---------------------------------------------
     rng = np.random.RandomState(0)
-    results = {}
+    stage_results = {}
     for frames in FRAME_BUCKETS:
         t_in = frames * 128  # the 64-channel input of the last stage
         for dtype in (torch.float32, torch.bfloat16):
             for batch in (1, 4):
-                results[(frames, batch, dtype)] = check_kernel(
+                stage_results[(frames, batch, dtype)] = check_stage(
                     f"last stage ups+stage+post, {frames} frames, B={batch}",
                     rng, 32, 64, True, batch, t_in, dtype,
                 )
     for dtype in (torch.float32, torch.bfloat16):
-        check_kernel("C=64 stage alone, 256 frames, B=1", rng, 64, None,
-                     False, 1, 256 * 128, dtype)
-    check_kernel("last stage, ragged length", rng, 32, 64, True, 1, 12345,
-                 torch.float32)
+        check_stage("C=64 stage alone, 256 frames, B=1", rng, 64, None,
+                    False, 1, 256 * 128, dtype)
+    check_stage("last stage, ragged length", rng, 32, 64, True, 1, 12345,
+                torch.float32)
 
-    # -- 4. voice ----------------------------------------------------------------
+    # -- 4. resblock kernel against plain -------------------------------------------
+    # the cases of tests/test_pallas_ops.py, a ragged T, no bias, then C
+    # at the decoder's stage lengths of a 256-frame bucket with the
+    # largest halo (K=11, d=5), then the profiling shape
+    for dtype in (torch.float32, torch.bfloat16):
+        for c, t, b, k, d in ((8, 64, 1, 3, 1), (16, 256, 2, 3, 5),
+                              (32, 256, 1, 11, 5), (16, 128, 2, 7, 3),
+                              (32, 12345, 2, 7, 3)):
+            check_resblock(rng, c, t, b, k, d, dtype)
+        check_resblock(rng, 64, 1000, 2, 7, 3, dtype, bias=False)
+        for c, t in ((32, 65536), (64, 32768), (128, 16384), (256, 2048)):
+            check_resblock(rng, c, t, 1, 11, 5, dtype)
+    res_err, res_ms, res_plain_ms = check_resblock(
+        rng, 128, 65536, 16, 3, 5, torch.bfloat16, iters=5
+    )
+
+    # -- 5-11. the paths -------------------------------------------------------------
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         t0 = time.perf_counter()
         voice_dir, plain_dir = make_voices(root)
         say("voice", f"full-width *_low test voice (random weights, seed "
             f"1234) in {time.perf_counter() - t0:.1f} s")
-
-        # -- 5. main path, in process ------------------------------------------
-        stage.launches = 0
-        det = Mimic3TextToSpeechSystem(Mimic3Settings(
-            voices_directories=[str(root)], use_deterministic_compute=True,
-            noise_scale=0.0, noise_w=0.0,
-        ))
-        det.voice = "en_US/test_low"
-        det_wav = parse_wav(det.text_to_wav(TEXT))
-        n_det = stage.launches
-        default = Mimic3TextToSpeechSystem(
-            Mimic3Settings(voices_directories=[str(root)], seed=7)
-        )
-        default.voice = "en_US/test_low"
-        def_wav = parse_wav(default.text_to_wav(TEXT))
-        n_default = stage.launches - n_det
-        voice = load_from_directory(voice_dir)
-        batch_ids = [phoneme_ids(voice, t) for t in BATCH_TEXTS]
-        before = stage.launches
-        batch_out = voice.session.synthesize_ids_batch(batch_ids, seed=7)
-        n_batch = stage.launches - before
-        launches = stage.launches
-        say("main", f"deterministic WAV {det_wav.size} samples "
-            f"({n_det} launches), default bf16 WAV {def_wav.size} samples "
-            f"({n_default} launches), batch of 4 {[a.size for a in batch_out]}"
-            f" ({n_batch} launches)")
-        if min(n_det, n_default, n_batch) < 1:
-            raise AssertionError("the main path did not launch the kernel")
-        if not all(a.size and np.isfinite(a).all() for a in batch_out):
-            raise AssertionError("batch output empty or not finite")
-
-        # the same utterances with every stage on the plain path
-        ref_det = Mimic3TextToSpeechSystem(Mimic3Settings(
-            voices_directories=[str(root)], use_deterministic_compute=True,
-            noise_scale=0.0, noise_w=0.0,
-        ))
-        ref_det.voice = "en_US/plain_low"
-        ref_wav = parse_wav(ref_det.text_to_wav(TEXT))
-        plain_voice = load_from_directory(plain_dir)
-        plain_batch = plain_voice.session.synthesize_ids_batch(batch_ids, seed=7)
-        c_det = corr(det_wav, ref_wav)
-        c_batch = min(corr(a, b) for a, b in zip(batch_out, plain_batch))
-        say("check", f"kernel path vs plain path: deterministic f32 corr "
-            f"{c_det:.6f}, bf16 batch min corr {c_batch:.6f}")
-        if det_wav.size != ref_wav.size or not c_det >= 0.999:
-            raise AssertionError("deterministic audio disagrees with plain")
-        if [a.size for a in batch_out] != [a.size for a in plain_batch]:
-            raise AssertionError("batch lengths disagree with plain")
-        if not c_batch > 0.99:
-            raise AssertionError("bf16 batch audio disagrees with plain")
-
-        # -- 6. main path, CLI ---------------------------------------------------
-        proc = subprocess.run(
-            [sys.executable, "-m", "mimic3_tpu_torch.cli",
-             "--voices-dir", str(root), "--voice", "en_US/test_low",
-             "--deterministic"],
-            input=(TEXT + "\n").encode(), capture_output=True, cwd=REPO,
-            env=dict(os.environ, PYTHONPATH=str(REPO)), timeout=600,
-        )
-        if proc.returncode != 0:
-            raise AssertionError(f"CLI failed:\n{proc.stderr.decode()[-3000:]}")
-        cli_wav = parse_wav(proc.stdout)
-        say("cli", f"WAV {cli_wav.size} samples at 22050 Hz, corr with the "
-            f"in-process WAV {corr(cli_wav, det_wav):.6f}")
-        if cli_wav.size != det_wav.size:
-            raise AssertionError("CLI WAV length differs from in-process")
-
-        # -- 7. times (informative) ------------------------------------------------
-        for label, v in (("kernel", voice), ("plain", plain_voice)):
-            for batch in (1, 4):
-                wall, rate = time_session(v.session, batch_ids[:batch], 5)
-                say("time", f"{label} path, default mode, batch {batch}: "
-                    f"{wall * 1000:.1f} ms per call, {rate:.1f} audio-s/s "
-                    f"({card_line})")
+        launches = {"main": main_path(root, voice_dir, plain_dir, card_line)}
+        res_launches, _ = profile_path()
+        launches["streaming"] = streaming_path(voice_dir, card_line)
+        launches["server"] = server_path(root, card_line)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
     # the deterministic CLI path's shape and dtype: 128 frames, B=1, f32
-    err, ms, plain_ms = results[(128, 1, torch.float32)]
-    print(json.dumps({"kernels": [{
-        "name": "hifigan_stage_fused",
-        "route": "cuda",
-        "source": "mimic3_tpu_torch/csrc/stage.cu",
-        "replaces": "mimic3_tpu/ops/stage.py:399",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}), flush=True)
+    err, ms, plain_ms = stage_results[(128, 1, torch.float32)]
+    print(json.dumps({"kernels": [
+        {
+            "name": "hifigan_stage_fused",
+            "route": "cuda",
+            "source": "mimic3_tpu_torch/csrc/stage.cu",
+            "replaces": "mimic3_tpu/ops/stage.py:399",
+            "launches": sum(launches.values()),
+            "launches_by_path": launches,
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+        },
+        {
+            "name": "fused_resblock_subblock",
+            "route": "cuda",
+            "source": "mimic3_tpu_torch/csrc/resblock.cu",
+            "replaces": "mimic3_tpu/ops/resblock.py:136",
+            "launches": res_launches,
+            "max_abs_err": res_err,
+            "ms": res_ms,
+            "plain_ms": res_plain_ms,
+        },
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

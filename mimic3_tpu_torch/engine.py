@@ -2,7 +2,9 @@
 
 A :class:`mimic3_tpu.engine.Mimic3TextToSpeechSystem` whose voices load
 through the port's loader (``runtime/voice.py``); text handling, SSML,
-voice lookup and settings are the reference engine's own.
+voice lookup and settings are the reference engine's own.  Voices run on
+``device``: the card by default (raising when none is visible), the CPU
+only when named.
 """
 
 from __future__ import annotations
@@ -10,6 +12,8 @@ from __future__ import annotations
 import logging
 import typing
 from pathlib import Path
+
+import torch
 
 from mimic3_tpu.config import TrainingConfig
 from mimic3_tpu.engine import (
@@ -27,6 +31,15 @@ _LOGGER = logging.getLogger(__name__)
 
 class Mimic3TextToSpeechSystem(_ReferenceSystem):
     """The reference engine with voices synthesized by PyTorch."""
+
+    def __init__(
+        self,
+        settings: typing.Optional[Mimic3Settings] = None,
+        *,
+        device: typing.Union[str, torch.device, None] = None,
+    ):
+        super().__init__(settings)
+        self.device = device
 
     def _get_or_load_voice(self, voice_key: str):
         existing = self._loaded_voices.get(voice_key)
@@ -70,6 +83,7 @@ class Mimic3TextToSpeechSystem(_ReferenceSystem):
             share_sessions=self.settings.share_sessions,
             deterministic=self.settings.use_deterministic_compute,
             seed=self.settings.seed or 0,
+            device=self.device,
         )
         _LOGGER.info("Loaded voice from %s", model_dir)
         self._loaded_voices[voice_key] = voice

@@ -5,10 +5,14 @@ Counterpart of ``mimic3_tpu/models/vits/model.py``:
 1. :meth:`VitsModel.infer_durations` — encoder + duration predictor ->
    per-phoneme frame counts (its output is the one host sync),
 2. :meth:`VitsModel.decode_frames` — encoder + prior sample + flow
-   inverse + HiFi-GAN over a frame bucket.
+   inverse + HiFi-GAN over a frame bucket (or a window of it),
+3. :meth:`VitsModel.stream_start` — both at once for streaming: the
+   encoder once, durations, and the first decode window.
 
 Public shapes match the JAX package: ids ``[B, T]``, durations ``[B, T]``
-int32, audio ``[B, samples]`` float32; internally ``[B, C, T]``.
+int32, audio ``[B, samples]`` float32; internally ``[B, C, T]``, which is
+also the layout of the encoder statistics ``(m_p, logs_p)`` that
+``stream_start`` returns and ``decode_frames(enc_stats=...)`` takes.
 
 Noise keeps the reference's contract with its own generator: a value
 depends only on (seed, frame or phoneme position, channel) — never on
@@ -476,10 +480,29 @@ class VitsModel:
 
         ``dur_noise`` [B, T, 2] overrides the position-indexed SDP noise.
         """
+        durations, totals, _ = self._durations(
+            params, ids, lengths, seed, length_scale, noise_w, sid, dur_noise
+        )
+        return durations, totals
+
+    def _durations(
+        self,
+        params: Params,
+        ids: torch.Tensor,
+        lengths: torch.Tensor,
+        seed: int,
+        length_scale: float,
+        noise_w: float,
+        sid: typing.Optional[torch.Tensor],
+        dur_noise: typing.Optional[torch.Tensor] = None,
+    ) -> typing.Tuple[
+        torch.Tensor, torch.Tensor, typing.Tuple[torch.Tensor, torch.Tensor]
+    ]:
+        """Durations, totals and the encoder's (m_p, logs_p)."""
         b, t = ids.shape
         x_mask = sequence_mask(lengths, t)
         g = self.speaker_embedding(params, sid)
-        x, _, _ = self.encode(params, ids, x_mask)
+        x, m_p, logs_p = self.encode(params, ids, x_mask)
         if self.hp.use_sdp:
             if dur_noise is None:
                 noise = indexed_noise(seed, DURATION_NOISE_STREAM, 0, t, 2)
@@ -494,7 +517,43 @@ class VitsModel:
         w = torch.exp(logw) * x_mask * length_scale
         w_ceil = torch.ceil(w)[:, 0].to(torch.int32)
         totals = torch.clamp(w_ceil.sum(dim=1), min=1)
-        return w_ceil, totals
+        return w_ceil, totals, (m_p, logs_p)
+
+    def stream_start(
+        self,
+        params: Params,
+        ids: torch.Tensor,
+        lengths: torch.Tensor,
+        seed: int,
+        length_scale: float,
+        noise_w: float,
+        noise_scale: float,
+        num_frames: int,
+        sid: typing.Optional[torch.Tensor] = None,
+        stage_weights: typing.Optional[
+            typing.Mapping[int, "hfg.StageWeights"]
+        ] = None,
+    ) -> typing.Tuple[
+        torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor
+    ]:
+        """First window of (batched) streaming, with the encoder run once.
+
+        Returns ``(durations [B, T], totals [B], m_p, logs_p, audio0)``:
+        the durations with the math of :meth:`infer_durations`, the
+        encoder's prior statistics, and the first ``num_frames`` window
+        decoded from them.  Continuation windows pass the statistics back
+        to :meth:`decode_frames` (``enc_stats=``, same ``seed``); they
+        meet the first window seam-exactly because the prior noise is
+        frame-indexed and batch-invariant (:func:`indexed_noise`).
+        """
+        durations, totals, (m_p, logs_p) = self._durations(
+            params, ids, lengths, seed, length_scale, noise_w, sid
+        )
+        audio0, _ = self.decode_frames(
+            params, ids, lengths, durations, num_frames, seed, noise_scale,
+            sid=sid, enc_stats=(m_p, logs_p), stage_weights=stage_weights,
+        )
+        return durations, totals, m_p, logs_p, audio0
 
     # -- stage 2: decode -------------------------------------------------------
 
@@ -513,15 +572,24 @@ class VitsModel:
         stage_weights: typing.Optional[
             typing.Mapping[int, "hfg.StageWeights"]
         ] = None,
+        enc_stats: typing.Optional[
+            typing.Tuple[torch.Tensor, torch.Tensor]
+        ] = None,
     ) -> typing.Tuple[torch.Tensor, torch.Tensor]:
         """Decode to audio given per-phoneme frame counts.
 
         Returns (audio [B, num_frames*hop] float32, sample lengths [B]).
+        ``frame_offset`` decodes the window ``[offset, offset +
+        num_frames)`` of the utterance (chunked decode).
         ``prior_noise`` [B, F, inter] overrides the frame-indexed noise.
+        ``enc_stats`` = precomputed ``(m_p, logs_p)`` skips the encoder.
         """
         x_mask = sequence_mask(lengths, ids.shape[1])
         g = self.speaker_embedding(params, sid)
-        _, m_p, logs_p = self.encode(params, ids, x_mask)
+        if enc_stats is not None:
+            m_p, logs_p = enc_stats
+        else:
+            _, m_p, logs_p = self.encode(params, ids, x_mask)
 
         durations = durations * x_mask[:, 0].to(durations.dtype)
         y_lengths = torch.clamp(durations.sum(dim=1), min=1)

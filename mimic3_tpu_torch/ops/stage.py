@@ -21,10 +21,6 @@ raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 import typing
 from dataclasses import dataclass
@@ -39,10 +35,10 @@ from ..models.vits.layers import (
     conv_transpose1d,
     leaky_relu,
 )
+from . import build
 
-_PACKAGE_DIR = Path(__file__).resolve().parents[1]
-SOURCE = _PACKAGE_DIR / "csrc" / "stage.cu"
-BUILD_DIR = _PACKAGE_DIR.parent / "build" / "mimic3_tpu_torch"
+SOURCE = build.PACKAGE_DIR / "csrc" / "stage.cu"
+BUILD_DIR = build.BUILD_DIR
 
 # channel counts the kernel is instantiated for (csrc/stage.cu)
 SUPPORTED_CHANNELS = (8, 16, 32, 64)
@@ -52,6 +48,7 @@ _TILES = (256, 128, 64, 32)  # time tiles tried, largest first
 
 # kernel launches since the last reset (read by chip_smoke.py)
 launches = 0
+_LAUNCHES_LOCK = threading.Lock()
 
 _LIB: typing.Optional[ctypes.CDLL] = None
 _LIB_LOCK = threading.Lock()
@@ -62,22 +59,8 @@ _LIB_LOCK = threading.Lock()
 # ---------------------------------------------------------------------------
 
 
-def _find_nvcc() -> str:
-    """nvcc on PATH, else under $CUDA_HOME (default /usr/local/cuda)."""
-    nvcc = shutil.which("nvcc")
-    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
-    if nvcc is None and (home / "bin" / "nvcc").is_file():
-        nvcc = str(home / "bin" / "nvcc")
-    if nvcc is None:
-        raise RuntimeError(
-            "nvcc not found: the fused stage kernel cannot be built"
-        )
-    return nvcc
-
-
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libstage_{digest}.so"
+    return build.library_path(SOURCE, BUILD_DIR)
 
 
 def build_library() -> ctypes.CDLL:
@@ -88,25 +71,7 @@ def build_library() -> ctypes.CDLL:
         if _LIB is not None:
             return _LIB
         out = library_path()
-        if not out.is_file():
-            nvcc = _find_nvcc()
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            cmd = [
-                nvcc,
-                "-gencode", "arch=compute_90a,code=sm_90a",
-                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                "-Xptxas", "-v",
-                "-o", str(tmp), str(SOURCE),
-            ]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            # ptxas -v: registers, shared memory and spills per kernel
-            out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"building {SOURCE.name} failed:\n{proc.stderr}"
-                )
-            os.replace(tmp, out)
+        build.compile_library(SOURCE, out)
         lib = ctypes.CDLL(str(out))
         fn = lib.hifigan_stage_launch
         fn.restype = ctypes.c_int
@@ -388,5 +353,6 @@ def hifigan_stage_fused(
     )
     if err != 0:
         raise RuntimeError(f"hifigan_stage kernel launch failed: cuda error {err}")
-    launches += 1
+    with _LAUNCHES_LOCK:  # several request and driver threads launch
+        launches += 1
     return out

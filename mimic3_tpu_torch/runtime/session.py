@@ -1,20 +1,33 @@
-"""Synthesis session on one torch device: buckets, two-stage flow, stats.
+"""Synthesis session on one torch device: buckets, two-stage flow, streaming.
 
 Counterpart of ``mimic3_tpu/runtime/session.py::VitsSession`` with the
-surface the voice layer calls (``synthesize_ids``,
-``synthesize_ids_batch``, ``get_shared``, ``stats``).  Inputs are padded to
-the same text, batch and frame buckets as the reference; synthesis is a
-duration pass, one host sync on the frame totals, then a decode pass over
-the frame bucket covering the longest output.
+surface the voice layer, the engine, the batching scheduler and the HTTP
+server call: ``synthesize_ids``, ``synthesize_ids_batch``,
+``synthesize_ids_chunked``, ``stream_start_batch``, ``warmup``,
+``jit_executable_count``, ``hot_path_compiles``, ``batcher``, ``dp``,
+``allow_bucket_growth``, ``get_shared`` and ``stats``.
 
-Not ported yet: speculative decode, chunked/streaming decode, warmup and
-the warmed-bucket fallback, and multi-device meshes.
+Inputs are padded to the same text, batch and frame buckets as the
+reference.  Synthesis is a duration pass, one host sync on the frame
+totals, then a decode pass over the frame bucket covering the longest
+output.  Streaming runs one fused pass (encoder once, durations, first
+window) and then decodes overlapped windows from the kept encoder
+statistics; the frame-indexed prior noise makes the windows seam-exact.
+
+Every device call runs inside the reference's host-side
+``_device_call`` tracker, so ``wait_device_idle`` (the server's
+shutdown) sees the port's work, with autograd off and float32
+convolutions in float32.
+
+Not ported yet: speculative decode, CUDA graphs per warmed signature, and
+multi-device serving (``dp`` is always 1).
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import queue
 import threading
 import time
 import typing
@@ -23,7 +36,14 @@ import numpy as np
 import torch
 
 from mimic3_tpu.config import TrainingConfig
-from mimic3_tpu.runtime.session import SessionStats, hit_key, pick_bucket
+from mimic3_tpu.runtime.session import (
+    SessionStats,
+    _device_call,
+    expand_profile_batches,
+    graceful_shutdown_requested,
+    hit_key,
+    pick_bucket,
+)
 
 from ..models.vits.model import VitsModel, mix_seed
 from .convert import to_torch_params
@@ -31,8 +51,23 @@ from .convert import to_torch_params
 _LOGGER = logging.getLogger(__name__)
 
 
-def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+def resolve_device(
+    device: typing.Union[str, torch.device, None] = None,
+) -> torch.device:
+    """The device named, else ``cuda``.  A CUDA device with no card
+    visible raises: the CPU is used only when a caller names it."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is visible; name the CPU explicitly "
+            "(device='cpu', --device cpu) to synthesize on it"
+        )
+    return device
+
+
+_F32_LOCK = threading.Lock()
+_F32_USERS = 0
+_F32_PREVIOUS = True
 
 
 @contextlib.contextmanager
@@ -42,14 +77,225 @@ def full_f32_convolutions() -> typing.Iterator[None]:
     cuDNN computes them in TF32 by default (about three decimal digits),
     which would move the encoder's and duration predictor's outputs away
     from the reference; the decoder's speed path is its bf16 dtype.
-    The flag is process-wide: it is restored on exit.
+    The flag is process-wide and sessions run on several threads (request
+    workers, the scheduler, continuation drivers): the first of
+    overlapping users turns TF32 off and the last restores it.
     """
-    previous = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
+    global _F32_USERS, _F32_PREVIOUS
+    with _F32_LOCK:
+        if _F32_USERS == 0:
+            _F32_PREVIOUS = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+        _F32_USERS += 1
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = previous
+        with _F32_LOCK:
+            _F32_USERS -= 1
+            if _F32_USERS == 0:
+                torch.backends.cudnn.allow_tf32 = _F32_PREVIOUS
+
+
+@contextlib.contextmanager
+def device_work() -> typing.Iterator[None]:
+    """One device call: tracked as in flight, autograd off (per thread),
+    float32 convolutions in float32."""
+    with _device_call(), torch.inference_mode(), full_f32_convolutions():
+        yield
+
+
+def _recap(durations: np.ndarray, cap: int) -> np.ndarray:
+    """Clamp cumulative durations at ``cap`` frames (truncation)."""
+    cum = np.minimum(np.cumsum(durations, axis=1), cap)
+    return np.concatenate([cum[:, :1], np.diff(cum, axis=1)], axis=1)
+
+
+class _LazyHostRows:
+    """Device tensors copied to the host once, lazily, shared by the row
+    generators of one batched stream start.  The copy happens after the
+    first chunks are out (off the first-chunk latency path) and only if
+    some stream needs a continuation window."""
+
+    def __init__(self, *tensors: torch.Tensor):
+        self._dev: typing.Optional[typing.Tuple[torch.Tensor, ...]] = tensors
+        self._np: typing.Optional[typing.Tuple[np.ndarray, ...]] = None
+        self._lock = threading.Lock()
+
+    def host(self) -> typing.Tuple[np.ndarray, ...]:
+        with self._lock:
+            if self._np is None:
+                assert self._dev is not None
+                self._np = tuple(t.cpu().numpy() for t in self._dev)
+                self._dev = None
+            return self._np
+
+
+class _ContinuationDriver:
+    """Batched continuation decode for one fused stream start.
+
+    Counterpart of the reference's driver (same contract): streams that
+    started together in :meth:`TorchVitsSession.stream_start_batch` share
+    a chunk grid, a seed and padded device tensors, so their continuation
+    windows run as ONE batched decode per window.  A daemon thread decodes
+    window k for the whole padded batch and puts each row's valid samples
+    on its queue.  It is demand-paced: at most ``PREFETCH`` windows ahead
+    of the fastest row still being consumed, so an idle group stops using
+    the device.  The audio equals the per-row path's (the prior noise is
+    frame-indexed and shared across batch rows).
+    """
+
+    PREFETCH = 2
+    # no live row advanced while production was blocked for this long:
+    # every consumer is gone or wedged — fail their queues and release
+    # the device tensors instead of keeping the thread forever
+    STALL_TIMEOUT = 600.0
+
+    def __init__(
+        self,
+        session: "TorchVitsSession",
+        dev_args: typing.Tuple,
+        seed: int,
+        noise_scale: float,
+        totals: typing.Sequence[int],
+        first_cf: int,
+        chunk_frames: int,
+        overlap: int,
+    ):
+        self._session = session
+        self._dev_args = dev_args  # ids, lengths, sid, durations, m_p, logs_p
+        self._seed = seed
+        self._noise_scale = float(noise_scale)
+        self._totals = [int(t) for t in totals]
+        self._batch = len(self._totals)
+        self._first_cf = first_cf
+        self._chunk_frames = chunk_frames
+        self._overlap = overlap
+        self._queues: typing.List[queue.SimpleQueue] = [
+            queue.SimpleQueue() for _ in range(self._batch)
+        ]
+        # consumed[i]: highest window index row i's consumer has pulled
+        # (0 = only the fused first chunk); alive[i] goes False when the
+        # row's generator finishes or is closed (client disconnect)
+        self._consumed = [0] * self._batch
+        self._alive = [True] * self._batch
+        self._cond = threading.Condition()
+        self.windows_produced = 0  # introspection for tests
+        threading.Thread(
+            target=self._run, daemon=True, name="tts-continuation-driver"
+        ).start()
+
+    # -- producer --------------------------------------------------------------
+
+    def _may_produce(self, k: int) -> typing.Optional[bool]:
+        """True = produce window k now; False = wait; None = abort."""
+        live = [
+            self._consumed[i] for i in range(self._batch) if self._alive[i]
+        ]
+        if not live:
+            return None
+        return k <= max(live) + self.PREFETCH
+
+    def _wait_for_demand(self, k: int) -> bool:
+        """Block until window k is wanted; False when every consumer is
+        gone.  Raises on shutdown or a stall."""
+        deadline = time.monotonic() + self.STALL_TIMEOUT
+        with self._cond:
+            while True:
+                state = self._may_produce(k)
+                if state is None:
+                    return False
+                if state:
+                    return True
+                if graceful_shutdown_requested():
+                    raise RuntimeError(
+                        "continuation decode cancelled: shutdown requested"
+                    )
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise RuntimeError(
+                        "continuation consumers stalled for "
+                        f"{self.STALL_TIMEOUT:.0f}s"
+                    )
+                self._cond.wait(timeout=min(remaining, 5.0))
+
+    def _run(self) -> None:
+        session = self._session
+        hop = session.model.hp.hop_length
+        cf = self._chunk_frames
+        window = cf + 2 * self._overlap
+        ids, lengths, sid, durations, m_p, logs_p = self._dev_args
+        try:
+            start = self._first_cf
+            k = 1
+            while True:
+                rows = [
+                    i for i in range(self._batch) if start < self._totals[i]
+                ]
+                if not rows or not self._wait_for_demand(k):
+                    return
+                left = min(self._overlap, start)
+                session._note_run(
+                    hit_key("chunk", ids.shape[0], ids.shape[1], window)
+                )
+                # inference mode is per thread: device_work enters it here
+                with device_work():
+                    audio, _ = session.model.decode_frames(
+                        session.params, ids, lengths, durations, window,
+                        self._seed, self._noise_scale, sid=sid,
+                        frame_offset=start - left, enc_stats=(m_p, logs_p),
+                        stage_weights=session.stage_weights,
+                    )
+                    audio_np = audio.float().cpu().numpy()  # one copy
+                self.windows_produced += 1
+                for i in rows:
+                    valid = min(cf, self._totals[i] - start)
+                    self._queues[i].put(
+                        audio_np[i, left * hop : (left + valid) * hop].copy()
+                    )
+                start += cf
+                k += 1
+        except BaseException as err:  # noqa: BLE001 — forwarded to rows
+            for q in self._queues:
+                q.put(err)
+        finally:
+            self._dev_args = None  # release device tensors promptly
+
+    # -- consumers -------------------------------------------------------------
+
+    def row(
+        self, i: int, first_chunk: np.ndarray
+    ) -> typing.Iterator[np.ndarray]:
+        """Yield row ``i``'s chunks (the first one from the fused start)."""
+        session = self._session
+        hop = session.model.hp.hop_length
+        sample_rate = session.config.audio.sample_rate
+        t0 = time.perf_counter()
+        emitted = 0
+        try:
+            total = self._totals[i]
+            valid0 = min(self._first_cf, total)
+            yield np.asarray(first_chunk[: valid0 * hop], dtype=np.float32)
+            emitted += valid0
+            start = self._first_cf
+            k = 1
+            while start < total:
+                item = self._queues[i].get()
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+                emitted += min(self._chunk_frames, total - start)
+                start += self._chunk_frames
+                with self._cond:
+                    self._consumed[i] = k
+                    self._cond.notify_all()
+                k += 1
+        finally:
+            with self._cond:
+                self._alive[i] = False
+                self._cond.notify_all()
+            session.stats.record(
+                time.perf_counter() - t0, emitted * hop / sample_rate
+            )
 
 
 class TorchVitsSession:
@@ -66,9 +312,10 @@ class TorchVitsSession:
         deterministic: bool = False,
         seed: int = 0,
         device: typing.Union[str, torch.device, None] = None,
+        allow_bucket_growth: bool = False,
     ):
         self.config = config
-        self.device = torch.device(device) if device else default_device()
+        self.device = resolve_device(device)
         self.deterministic = deterministic
         decoder_dtype = (
             torch.float32
@@ -91,11 +338,28 @@ class TorchVitsSession:
         self.text_buckets = tuple(config.tpu.text_buckets)
         self.frame_buckets = tuple(config.tpu.frame_buckets)
         self.batch_buckets = tuple(sorted(config.tpu.batch_buckets)) or (1,)
+        # False (serving default): inputs past the largest bucket are
+        # truncated or split instead of growing a new bucket
+        self.allow_bucket_growth = allow_bucket_growth
+        self.dp = 1  # one device; the scheduler reads it
+        self.batcher = None  # optional server-side BatchScheduler
+        self.batched_continuations = bool(
+            getattr(config.tpu, "batched_continuations", True)
+        )
         self.stats = SessionStats()
         self.seed = seed
         self._call_counter = 0
         self._lock = threading.Lock()
         self._multispeaker = config.model.is_multispeaker
+        # signatures (hit keys) dispatched so far, warmup included
+        self._run_keys: typing.Set[str] = set()
+        # len(_run_keys) when the last warmup finished; None before one
+        self._warmup_baseline: typing.Optional[int] = None
+        self._hot_path_logged = 0
+        # signatures known to have run (warmup, then every dispatch);
+        # once set, a request whose natural bucket is not in it rounds up
+        # to the nearest warmed bucket (padding only)
+        self._warmed_keys: typing.Optional[typing.Set[str]] = None
 
     @classmethod
     def get_shared(
@@ -120,10 +384,162 @@ class TorchVitsSession:
             counter = self._call_counter
         return mix_seed(self.seed, counter)
 
+    def _put(self, array: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
+
+    def _sid(self, sid: np.ndarray) -> typing.Optional[torch.Tensor]:
+        return self._put(sid) if self._multispeaker else None
+
+    # -- signatures, warmed set, fallback ------------------------------------------
+
+    def _note_run(self, key: str) -> None:
+        """Record one dispatch of signature ``key``: the /api/stats hit
+        table, the distinct signatures run, and the warmed set once a
+        warmup has made one."""
+        self.stats.record_hit(key)
+        with self._lock:
+            self._run_keys.add(key)
+            if self._warmed_keys is not None:
+                self._warmed_keys.add(key)
+
+    def jit_executable_count(self) -> int:
+        """Distinct signatures (``hit_key`` strings) this session has run,
+        warmup included.  PyTorch compiles no executable per shape: the
+        name is the reference's, kept because /api/stats reads it, and
+        the count is the number of distinct bucket shapes dispatched."""
+        with self._lock:
+            return len(self._run_keys)
+
+    def hot_path_compiles(self) -> int:
+        """Signatures first run AFTER warmup completed (0 before one).
+
+        The reference counts XLA compiles on the serving path; here the
+        count means live traffic dispatched a shape outside the warmed
+        set (a ``--warmup-profile`` miss).  Logged once per new value.
+        """
+        with self._lock:
+            if self._warmup_baseline is None:
+                return 0
+            n = max(0, len(self._run_keys) - self._warmup_baseline)
+            if n > self._hot_path_logged:
+                _LOGGER.warning(
+                    "%d signature(s) first run on the serving hot path — "
+                    "live traffic left the warmed set; re-capture the "
+                    "warmup profile from /api/stats executable_hits",
+                    n,
+                )
+                self._hot_path_logged = n
+            return n
+
+    def _round_up_warmed(
+        self,
+        natural: str,
+        candidates: typing.Iterable[typing.Tuple[int, str]],
+        current: int,
+    ) -> int:
+        """First candidate bucket whose signature is warmed, else
+        ``current``; a fallback is counted in ``bucket_fallbacks``."""
+        with self._lock:
+            warmed = self._warmed_keys
+            if warmed is None or self.allow_bucket_growth or natural in warmed:
+                return current
+            warmed = set(warmed)
+        for bucket, used in candidates:
+            if used in warmed:
+                if self.stats.record_bucket_fallback(natural, used) == 1:
+                    _LOGGER.warning(
+                        "Warmed-bucket fallback: %s never ran, dispatching "
+                        "%s (padded) — live traffic escaped the warmup "
+                        "profile; re-capture it from /api/stats "
+                        "executable_hits",
+                        natural, used,
+                    )
+                return bucket
+        return current
+
+    def _fallback_t(
+        self,
+        kind: str,
+        b_bucket: int,
+        t_bucket: int,
+        f: typing.Optional[int] = None,
+    ) -> int:
+        """Nearest warmed text bucket >= the natural one for ``kind``
+        (``duration`` on the batch path, ``stream_start`` on the streaming
+        path).  Engages only after a warmup; padding is masked, so the
+        audio stays the same up to the convolution algorithms' rounding."""
+        return self._round_up_warmed(
+            hit_key(kind, b_bucket, t_bucket, f),
+            (
+                (t, hit_key(kind, b_bucket, t, f))
+                for t in self.text_buckets
+                if t > t_bucket
+            ),
+            t_bucket,
+        )
+
+    def _fallback_f(self, b_bucket: int, t_bucket: int, f_bucket: int) -> int:
+        """Nearest warmed decode frame bucket >= the natural one (same
+        contract as :meth:`_fallback_t`)."""
+        return self._round_up_warmed(
+            hit_key("decode", b_bucket, t_bucket, f_bucket),
+            (
+                (f, hit_key("decode", b_bucket, t_bucket, f))
+                for f in self.frame_buckets
+                if f > f_bucket
+            ),
+            f_bucket,
+        )
+
     # -- synthesis ---------------------------------------------------------------
 
-    @torch.inference_mode()
-    @full_f32_convolutions()
+    def _split(self, batch: int) -> typing.Optional[typing.List[slice]]:
+        """Slices of a batch past the largest batch bucket, else None."""
+        max_bb = self.batch_buckets[-1]
+        if self.allow_bucket_growth or batch <= max_bb:
+            return None
+        return [slice(i, i + max_bb) for i in range(0, batch, max_bb)]
+
+    def _truncate(
+        self, id_sequences: typing.Sequence[typing.Sequence[int]]
+    ) -> typing.Sequence[typing.Sequence[int]]:
+        max_text = self.text_buckets[-1]
+        n_long = sum(1 for s in id_sequences if len(s) > max_text)
+        if self.allow_bucket_growth or not n_long:
+            return id_sequences
+        _LOGGER.warning(
+            "Truncating %d phoneme sequence(s) to the largest text bucket "
+            "(%d)",
+            n_long, max_text,
+        )
+        return [list(s)[:max_text] for s in id_sequences]
+
+    def _pad(
+        self,
+        id_sequences: typing.Sequence[typing.Sequence[int]],
+        speaker_ids: typing.Optional[typing.Sequence[typing.Optional[int]]],
+        kind: str,
+        f: typing.Optional[int] = None,
+    ) -> typing.Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(ids, lengths, sid) padded to the batch and text buckets (the
+        text bucket after the warmed-bucket fallback for ``kind``)."""
+        batch = len(id_sequences)
+        grow = self.allow_bucket_growth
+        b_bucket = pick_bucket(batch, self.batch_buckets, grow=grow)
+        lengths = np.ones((b_bucket,), np.int64)  # pad rows: 1 phoneme
+        lengths[:batch] = [len(s) for s in id_sequences]
+        t_bucket = pick_bucket(
+            max(1, int(lengths[:batch].max())), self.text_buckets, grow=grow
+        )
+        t_bucket = self._fallback_t(kind, b_bucket, t_bucket, f)
+        ids = np.zeros((b_bucket, t_bucket), np.int64)
+        for i, seq in enumerate(id_sequences):
+            ids[i, : len(seq)] = np.asarray(seq, np.int64)
+        sid = np.zeros((b_bucket,), np.int64)
+        if speaker_ids is not None:
+            sid[:batch] = [s or 0 for s in speaker_ids]
+        return ids, lengths, sid
+
     def synthesize_ids_batch(
         self,
         id_sequences: typing.Sequence[typing.Sequence[int]],
@@ -133,6 +549,7 @@ class TorchVitsSession:
         noise_scale: float = 0.667,
         noise_w: float = 0.8,
         seed: typing.Optional[int] = None,
+        max_frames_cap: int = 32768,
     ) -> typing.List[np.ndarray]:
         """Synthesize a batch of phoneme-id sequences -> float32 waveforms.
 
@@ -141,96 +558,66 @@ class TorchVitsSession:
         bucket cut there (as the reference does when serving).
         """
         start = time.perf_counter()
-        batch = len(id_sequences)
-        max_bb = self.batch_buckets[-1]
-        if batch > max_bb:
+        parts = self._split(len(id_sequences))
+        if parts is not None:
             out: typing.List[np.ndarray] = []
-            for i in range(0, batch, max_bb):
+            for part in parts:
                 out.extend(
                     self.synthesize_ids_batch(
-                        id_sequences[i : i + max_bb],
+                        id_sequences[part],
                         speaker_ids=(
-                            None
-                            if speaker_ids is None
-                            else speaker_ids[i : i + max_bb]
+                            None if speaker_ids is None else speaker_ids[part]
                         ),
                         length_scale=length_scale,
                         noise_scale=noise_scale,
                         noise_w=noise_w,
                         seed=seed,
+                        max_frames_cap=max_frames_cap,
                     )
                 )
             return out
-        max_text = self.text_buckets[-1]
-        if any(len(s) > max_text for s in id_sequences):
-            _LOGGER.warning(
-                "Truncating %d phoneme sequence(s) to the largest text "
-                "bucket (%d)",
-                sum(1 for s in id_sequences if len(s) > max_text),
-                max_text,
-            )
-            id_sequences = [list(s)[:max_text] for s in id_sequences]
-        b_bucket = pick_bucket(batch, self.batch_buckets)
-        lengths = np.ones((b_bucket,), np.int64)  # pad rows: 1 phoneme
-        lengths[:batch] = [len(s) for s in id_sequences]
-        t_bucket = pick_bucket(int(lengths[:batch].max()), self.text_buckets)
-        ids = np.zeros((b_bucket, t_bucket), np.int64)
-        for i, seq in enumerate(id_sequences):
-            ids[i, : len(seq)] = np.asarray(seq, np.int64)
-        sid = np.zeros((b_bucket,), np.int64)
-        if speaker_ids is not None:
-            sid[:batch] = np.asarray(speaker_ids, np.int64)
-
+        id_sequences = self._truncate(id_sequences)
+        batch = len(id_sequences)
+        ids, lengths, sid = self._pad(id_sequences, speaker_ids, "duration")
+        b_bucket, t_bucket = ids.shape
         call_seed = self._next_seed(seed)
-        ids_t = torch.from_numpy(ids).to(self.device)
-        lengths_t = torch.from_numpy(lengths).to(self.device)
-        sid_t = (
-            torch.from_numpy(sid).to(self.device)
-            if self._multispeaker
-            else None
-        )
+        if not self.allow_bucket_growth:
+            max_frames_cap = min(max_frames_cap, self.frame_buckets[-1])
 
-        self.stats.record_hit(hit_key("duration", b_bucket, t_bucket))
-        durations, totals = self.model.infer_durations(
-            self.params,
-            ids_t,
-            lengths_t,
-            call_seed,
-            float(length_scale),
-            float(noise_w),
-            sid=sid_t,
-        )
-        totals_np = totals.cpu().numpy()  # the one host sync
-        needed = int(totals_np[:batch].max())
-        max_frames = self.frame_buckets[-1]
-        if needed > max_frames:
-            _LOGGER.warning(
-                "Output of %d frames exceeds cap %d; truncating",
-                needed,
-                max_frames,
+        with device_work():
+            ids_t, lengths_t, sid_t = (
+                self._put(ids), self._put(lengths), self._sid(sid)
             )
-            needed = max_frames
-            # clamp the durations so sample lengths match the audio
-            cum = torch.clamp(torch.cumsum(durations, dim=1), max=needed)
-            durations = torch.cat(
-                [cum[:, :1], cum[:, 1:] - cum[:, :-1]], dim=1
-            ).to(torch.int32)
-        f_bucket = pick_bucket(needed, self.frame_buckets)
-
-        self.stats.record_hit(hit_key("decode", b_bucket, t_bucket, f_bucket))
-        audio, sample_lengths = self.model.decode_frames(
-            self.params,
-            ids_t,
-            lengths_t,
-            durations,
-            f_bucket,
-            call_seed,
-            float(noise_scale),
-            sid=sid_t,
-            stage_weights=self.stage_weights,
-        )
-        audio_np = audio.float().cpu().numpy()
-        sample_lengths_np = sample_lengths.cpu().numpy()
+            self._note_run(hit_key("duration", b_bucket, t_bucket))
+            durations, totals = self.model.infer_durations(
+                self.params, ids_t, lengths_t, call_seed,
+                float(length_scale), float(noise_w), sid=sid_t,
+            )
+            totals_np = totals.cpu().numpy()  # the one host sync
+            needed = int(totals_np[:batch].max())
+            if needed > max_frames_cap:
+                _LOGGER.warning(
+                    "Output of %d frames exceeds cap %d; truncating",
+                    needed, max_frames_cap,
+                )
+                needed = max_frames_cap
+                # clamp the durations so sample lengths match the audio
+                durations = self._put(
+                    _recap(durations.cpu().numpy(), max_frames_cap)
+                )
+            f_bucket = pick_bucket(
+                needed, self.frame_buckets, grow=self.allow_bucket_growth
+            )
+            # round up to the nearest warmed decode bucket
+            f_bucket = self._fallback_f(b_bucket, t_bucket, f_bucket)
+            self._note_run(hit_key("decode", b_bucket, t_bucket, f_bucket))
+            audio, sample_lengths = self.model.decode_frames(
+                self.params, ids_t, lengths_t, durations, f_bucket,
+                call_seed, float(noise_scale), sid=sid_t,
+                stage_weights=self.stage_weights,
+            )
+            audio_np = audio.float().cpu().numpy()
+            sample_lengths_np = sample_lengths.cpu().numpy()
         results = [
             audio_np[i, : int(sample_lengths_np[i])] for i in range(batch)
         ]
@@ -256,7 +643,20 @@ class TorchVitsSession:
         noise_w: float = 0.8,
         seed: typing.Optional[int] = None,
     ) -> np.ndarray:
-        """Single utterance -> float32 waveform."""
+        """Single utterance -> float32 waveform; routed through the
+        batching scheduler when one is attached (server mode), so
+        concurrent callers share device batches."""
+        batcher = self.batcher
+        if batcher is not None and not batcher.is_scheduler_thread:
+            return batcher.submit(
+                self,
+                phoneme_ids,
+                speaker_id=speaker_id or 0,
+                length_scale=length_scale,
+                noise_scale=noise_scale,
+                noise_w=noise_w,
+                seed=seed,
+            ).result()
         return self.synthesize_ids_batch(
             [phoneme_ids],
             speaker_ids=None if speaker_id is None else [speaker_id],
@@ -265,3 +665,381 @@ class TorchVitsSession:
             noise_w=noise_w,
             seed=seed,
         )[0]
+
+    # -- streaming -----------------------------------------------------------------
+
+    def synthesize_ids_chunked(
+        self,
+        phoneme_ids: typing.Sequence[int],
+        *,
+        speaker_id: typing.Optional[int] = None,
+        length_scale: float = 1.0,
+        noise_scale: float = 0.667,
+        noise_w: float = 0.8,
+        seed: typing.Optional[int] = None,
+        chunk_frames: int = 128,
+        overlap: int = 64,
+        max_frames_cap: int = 32768,
+        first_chunk_frames: typing.Optional[int] = None,
+    ) -> typing.Iterator[np.ndarray]:
+        """Streaming decode: yield float32 audio in ~chunk_frames pieces.
+
+        Windows are decoded with ``overlap`` frames of context on each side
+        and the seams trimmed; with overlap >= the decoder's and flow's
+        receptive field the chunks match the unchunked output to float
+        tolerance.  ``first_chunk_frames`` (< chunk_frames) shrinks only
+        the first window.  The audio is not peak-normalized (a stream
+        cannot know the final peak).
+
+        With a batching scheduler attached (server mode) the first window
+        is computed in one fused call shared with the other streams that
+        start at the same time (:meth:`stream_start_batch`); the output
+        is the same either way (sampling is batch-invariant).
+        """
+        batcher = self.batcher
+        if batcher is not None and not batcher.is_scheduler_thread:
+            gen = batcher.submit_stream(
+                self,
+                phoneme_ids,
+                speaker_id=speaker_id or 0,
+                length_scale=length_scale,
+                noise_scale=noise_scale,
+                noise_w=noise_w,
+                seed=seed,
+                chunk_frames=chunk_frames,
+                overlap=overlap,
+                max_frames_cap=max_frames_cap,
+                first_chunk_frames=first_chunk_frames,
+            ).result()
+            yield from gen
+            return
+        yield from self.stream_start_batch(
+            [phoneme_ids],
+            speaker_ids=None if speaker_id is None else [speaker_id],
+            length_scale=length_scale,
+            noise_scale=noise_scale,
+            noise_w=noise_w,
+            seed=seed,
+            chunk_frames=chunk_frames,
+            overlap=overlap,
+            max_frames_cap=max_frames_cap,
+            first_chunk_frames=first_chunk_frames,
+        )[0]
+
+    def stream_start_batch(
+        self,
+        id_sequences: typing.Sequence[typing.Sequence[int]],
+        *,
+        speaker_ids: typing.Optional[typing.Sequence[int]] = None,
+        length_scale: float = 1.0,
+        noise_scale: float = 0.667,
+        noise_w: float = 0.8,
+        seed: typing.Optional[int] = None,
+        chunk_frames: int = 128,
+        overlap: int = 64,
+        max_frames_cap: int = 32768,
+        first_chunk_frames: typing.Optional[int] = None,
+    ) -> typing.List[typing.Iterator[np.ndarray]]:
+        """Batched streaming: one fused call starts every stream.
+
+        :meth:`VitsModel.stream_start` runs the encoder once, the
+        durations, and the first window for the whole batch.  Returns one
+        generator per sequence, yielding what :meth:`synthesize_ids_chunked`
+        yields for it alone.  Continuation windows run as one batched
+        decode per window (:class:`_ContinuationDriver`) for groups of two
+        or more, else per row.
+        """
+        parts = self._split(len(id_sequences))
+        if parts is not None:
+            out: typing.List[typing.Iterator[np.ndarray]] = []
+            for part in parts:
+                out.extend(
+                    self.stream_start_batch(
+                        id_sequences[part],
+                        speaker_ids=(
+                            None if speaker_ids is None else speaker_ids[part]
+                        ),
+                        length_scale=length_scale,
+                        noise_scale=noise_scale,
+                        noise_w=noise_w,
+                        seed=seed,
+                        chunk_frames=chunk_frames,
+                        overlap=overlap,
+                        max_frames_cap=max_frames_cap,
+                        first_chunk_frames=first_chunk_frames,
+                    )
+                )
+            return out
+        id_sequences = self._truncate(id_sequences)
+        batch = len(id_sequences)
+        first_cf = min(first_chunk_frames or chunk_frames, chunk_frames)
+        window0 = first_cf + 2 * overlap
+        # the text bucket rounds up to a warmed stream start; continuation
+        # windows inherit it, so their signatures stay warmed too
+        ids, lengths, sid = self._pad(
+            id_sequences, speaker_ids, "stream_start", window0
+        )
+        b_bucket, t_bucket = ids.shape
+        call_seed = self._next_seed(seed)
+        with device_work():
+            ids_t, lengths_t, sid_t = (
+                self._put(ids), self._put(lengths), self._sid(sid)
+            )
+            self._note_run(
+                hit_key("stream_start", b_bucket, t_bucket, window0)
+            )
+            durations, totals, m_p, logs_p, audio0 = self.model.stream_start(
+                self.params, ids_t, lengths_t, call_seed,
+                float(length_scale), float(noise_w), float(noise_scale),
+                window0, sid=sid_t, stage_weights=self.stage_weights,
+            )
+            totals_np = totals.cpu().numpy()  # one host sync for the batch
+            audio0_np = audio0.float().cpu().numpy()
+
+        if not self.allow_bucket_growth:
+            max_frames_cap = min(max_frames_cap, self.frame_buckets[-1])
+        totals_list = [int(t) for t in totals_np[:batch]]
+        if (
+            self.batched_continuations
+            and batch >= 2
+            and max(totals_list) <= max_frames_cap
+            and max(totals_list) > first_cf
+        ):
+            # truncated rows (total > cap) keep the per-row path: their
+            # durations are re-capped per row
+            driver = _ContinuationDriver(
+                self,
+                (ids_t, lengths_t, sid_t, durations, m_p, logs_p),
+                call_seed, noise_scale, totals_list, first_cf,
+                chunk_frames, overlap,
+            )
+            return [driver.row(i, audio0_np[i]) for i in range(batch)]
+
+        shared = _LazyHostRows(durations, m_p, logs_p)
+        return [
+            self._stream_row(
+                ids[i : i + 1], int(lengths[i]), int(sid[i]), call_seed,
+                totals_list[i], audio0_np[i], shared, i,
+                noise_scale=noise_scale,
+                chunk_frames=chunk_frames,
+                overlap=overlap,
+                first_cf=first_cf,
+                max_frames_cap=max_frames_cap,
+            )
+            for i in range(batch)
+        ]
+
+    def _stream_row(
+        self,
+        ids_row: np.ndarray,
+        length_row: int,
+        sid_row: int,
+        seed: int,
+        total: int,
+        audio0_row: np.ndarray,
+        shared: _LazyHostRows,
+        row: int,
+        *,
+        noise_scale: float,
+        chunk_frames: int,
+        overlap: int,
+        first_cf: int,
+        max_frames_cap: int,
+    ) -> typing.Iterator[np.ndarray]:
+        """Yield one stream's chunks from a batched stream start."""
+        start_time = time.perf_counter()
+        hop = self.model.hp.hop_length
+        truncated = total > max_frames_cap
+        if truncated:
+            _LOGGER.warning(
+                "Chunked output of %d frames exceeds cap %d; truncating",
+                total, max_frames_cap,
+            )
+            total = max_frames_cap
+
+        # chunk grid: optional smaller first chunk, then uniform
+        sizes = [first_cf]
+        grid_end = first_cf
+        while grid_end < total:
+            sizes.append(chunk_frames)
+            grid_end += chunk_frames
+
+        dev: typing.Optional[typing.Tuple] = None
+
+        def row_tensors() -> typing.Tuple:
+            # lazy: the host copy and this row's upload happen after the
+            # first chunk is out, once per stream
+            nonlocal dev
+            if dev is None:
+                dur_np, m_p_np, logs_p_np = shared.host()
+                dur_row = dur_np[row : row + 1]
+                if truncated:
+                    dur_row = _recap(dur_row, max_frames_cap)
+                dev = (
+                    self._put(ids_row),
+                    self._put(np.array([length_row], np.int64)),
+                    self._sid(np.array([sid_row], np.int64)),
+                    self._put(dur_row),
+                    self._put(m_p_np[row : row + 1]),
+                    self._put(logs_p_np[row : row + 1]),
+                )
+            return dev
+
+        emitted = 0
+        start = 0
+        for n_chunk, cf in enumerate(sizes):
+            valid = min(cf, total - start)
+            if valid <= 0:
+                break
+            window = cf + 2 * overlap
+            # never fabricate left context before frame 0
+            left = min(overlap, start)
+            if n_chunk == 0 and not truncated:
+                # decoded in the batched fused pass
+                chunk = np.asarray(audio0_row[: valid * hop], np.float32)
+            else:
+                # (truncation invalidates the batched first window: its
+                # durations predate the cap)
+                self._note_run(hit_key("chunk", 1, ids_row.shape[1], window))
+                with device_work():
+                    i_t, l_t, s_t, d_t, m_t, lg_t = row_tensors()
+                    audio, _ = self.model.decode_frames(
+                        self.params, i_t, l_t, d_t, window, seed,
+                        float(noise_scale), sid=s_t,
+                        frame_offset=start - left, enc_stats=(m_t, lg_t),
+                        stage_weights=self.stage_weights,
+                    )
+                    chunk = (
+                        audio[0, left * hop : (left + valid) * hop]
+                        .float().cpu().numpy()
+                    )
+            emitted += valid
+            start += cf
+            yield chunk
+
+        self.stats.record(
+            time.perf_counter() - start_time,
+            emitted * hop / self.config.audio.sample_rate,
+        )
+
+    # -- warmup ----------------------------------------------------------------
+
+    def warmup(
+        self,
+        text_buckets: typing.Optional[typing.Sequence[int]] = None,
+        frame_buckets: typing.Optional[typing.Sequence[int]] = None,
+        batch_sizes: typing.Optional[typing.Sequence[int]] = None,
+        chunk_windows: typing.Sequence[int] = (),
+        parallel: int = 4,
+        profile: typing.Optional[typing.Collection[str]] = None,
+    ) -> float:
+        """Run every wanted signature once; returns the wall seconds.
+
+        The grid and the profile pruning are the reference's: a duration
+        pass per (batch, text) bucket and a decode per frame bucket; with
+        ``chunk_windows``, the fused stream start per (batch, text)
+        bucket, the batch-1 chunk windows and the batched continuation
+        window.  PyTorch compiles nothing per shape, so what warmup buys
+        here is the warmed set the bucket fallback rounds up to, the
+        baseline of :meth:`hot_path_compiles`, and cuDNN's and the
+        allocator's first-call work off the request path.  The calls run
+        one after another on the one device; ``parallel`` is accepted for
+        the reference's signature and not used.
+        """
+        del parallel
+        start = time.perf_counter()
+        tb = tuple(text_buckets or self.text_buckets)
+        fb = tuple(frame_buckets or self.frame_buckets)
+        profile_set = (
+            None
+            if profile is None
+            else expand_profile_batches(
+                profile, self.batch_buckets, frame_buckets=fb
+            )
+        )
+
+        def want(key: str) -> bool:
+            return profile_set is None or key in profile_set
+
+        if batch_sizes is None:
+            batch_sizes = (self.batch_buckets[0],)
+        else:
+            batch_sizes = sorted(
+                {pick_bucket(b, self.batch_buckets) for b in batch_sizes}
+            )
+        warmed: typing.Set[str] = set()
+
+        def inputs(b: int, t: int):
+            return (
+                self._put(np.zeros((b, t), np.int64)),
+                self._put(np.full((b,), t, np.int64)),
+                self._sid(np.zeros((b,), np.int64)),
+            )
+
+        for b in batch_sizes:
+            for t in tb:
+                fbs = [f for f in fb if want(hit_key("decode", b, t, f))]
+                if not (want(hit_key("duration", b, t)) or fbs):
+                    continue
+                if graceful_shutdown_requested():
+                    break
+                with device_work():
+                    ids, lengths, sid = inputs(b, t)
+                    durations, _ = self.model.infer_durations(
+                        self.params, ids, lengths, 0, 1.0, 0.8, sid=sid
+                    )
+                    warmed.add(hit_key("duration", b, t))
+                    for f in fbs:
+                        self.model.decode_frames(
+                            self.params, ids, lengths, durations, f, 0,
+                            0.667, sid=sid, stage_weights=self.stage_weights,
+                        )
+                        warmed.add(hit_key("decode", b, t, f))
+        if chunk_windows:
+            w0, w_cont = min(chunk_windows), max(chunk_windows)
+            for b in batch_sizes:
+                for t in tb:
+                    if b == 1:
+                        windows = [
+                            w for w in chunk_windows
+                            if want(hit_key("chunk", 1, t, w))
+                        ]
+                    elif self.batched_continuations and w_cont != w0 and want(
+                        hit_key("chunk", b, t, w_cont)
+                    ):
+                        windows = [w_cont]
+                    else:
+                        windows = []
+                    if not (windows or want(hit_key("stream_start", b, t, w0))):
+                        continue
+                    if graceful_shutdown_requested():
+                        break
+                    with device_work():
+                        ids, lengths, sid = inputs(b, t)
+                        durations, _, m_p, logs_p, _ = self.model.stream_start(
+                            self.params, ids, lengths, 0, 1.0, 0.8, 0.667,
+                            w0, sid=sid, stage_weights=self.stage_weights,
+                        )
+                        warmed.add(hit_key("stream_start", b, t, w0))
+                        for w in windows:
+                            self.model.decode_frames(
+                                self.params, ids, lengths, durations, w, 0,
+                                0.667, sid=sid, enc_stats=(m_p, logs_p),
+                                stage_weights=self.stage_weights,
+                            )
+                            warmed.add(hit_key("chunk", b, t, w))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)  # the work is done, not queued
+        elapsed = time.perf_counter() - start
+        self.stats.compile_count += len(warmed)
+        with self._lock:
+            self._run_keys |= warmed
+            self._warmup_baseline = len(self._run_keys)
+            if self._warmed_keys is None:
+                self._warmed_keys = set(self._run_keys)
+            else:  # repeated warmups extend the known set
+                self._warmed_keys |= self._run_keys
+        _LOGGER.info(
+            "Warmup ran %d signatures in %.1fs", len(warmed), elapsed
+        )
+        return elapsed

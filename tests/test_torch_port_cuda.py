@@ -1,7 +1,7 @@
-"""The port's CUDA kernel on the card, against its plain PyTorch version.
+"""The port's CUDA kernels on the card, against their plain PyTorch versions.
 
-Marked ``gpu``: every test skips without an NVIDIA card, since the kernel
-has no CPU mode.  This file imports no JAX, so it runs on a machine that
+Marked ``gpu``: every test skips without an NVIDIA card, since the kernels
+have no CPU mode.  This file imports no JAX, so it runs on a machine that
 has only PyTorch:
 
     python -m pytest --noconftest -m gpu tests/test_torch_port_cuda.py
@@ -111,3 +111,65 @@ def test_kernel_rejects_unsupported_input(cuda):
     x = torch.zeros(1, 64, 32, device=cuda).transpose(1, 2)
     with pytest.raises(ValueError):
         tstage.hifigan_stage_fused(rb, x, KERNELS, DILATIONS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "c,t,b,k,d,bias",
+    [
+        (8, 64, 1, 3, 1, True),  # the cases of tests/test_pallas_ops.py
+        (16, 256, 2, 3, 5, True),
+        (32, 256, 1, 11, 5, True),
+        (16, 128, 2, 7, 3, True),
+        (32, 1000, 2, 7, 3, True),  # ragged T across tiles
+        (64, 300, 1, 3, 3, False),  # no bias
+        (256, 777, 1, 11, 5, True),  # widest C, largest halo
+        (128, 5, 2, 3, 5, True),  # shorter than the halo
+    ],
+)
+def test_resblock_kernel_matches_plain(cuda, dtype, c, t, b, k, d, bias):
+    from mimic3_tpu_torch.ops import resblock as tres
+
+    rng = np.random.RandomState(c + t + k)
+    bound = 1.0 / np.sqrt(c * k)
+
+    def uniform(*shape):
+        return torch.from_numpy(
+            rng.uniform(-bound, bound, shape).astype(np.float32)
+        ).to(cuda)
+
+    w1, w2 = uniform(c, c, k), uniform(c, c, k)
+    b1, b2 = (uniform(c), uniform(c)) if bias else (None, None)
+    x = torch.from_numpy(rng.randn(b, c, t).astype(np.float32)).to(
+        cuda, getattr(torch, dtype)
+    )
+    kw = dict(kernel_size=k, dilation=d)
+    ref = tres.resblock_subblock_plain(x, w1, b1, w2, b2, **kw)
+    before = tres.launches
+    got = tres.fused_resblock_subblock(x, w1, b1, w2, b2, **kw)
+    torch.cuda.synchronize()
+    assert tres.launches == before + 1
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    ref, got = ref.float().cpu().numpy(), got.float().cpu().numpy()
+    assert np.isfinite(got).all()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, ref, atol=2e-4, rtol=1e-3)
+    else:
+        assert np.corrcoef(got.ravel(), ref.ravel())[0, 1] > 0.999
+
+
+@pytest.mark.gpu
+def test_resblock_kernel_rejects_unsupported_input(cuda):
+    from mimic3_tpu_torch.ops import resblock as tres
+
+    w = torch.zeros(12, 12, 3, device=cuda)
+    x = torch.zeros(1, 12, 64, device=cuda)  # C not a multiple of 8
+    with pytest.raises(ValueError):
+        tres.fused_resblock_subblock(x, w, None, w, None, kernel_size=3,
+                                     dilation=1)
+    w = torch.zeros(8, 8, 3, device=cuda)
+    x = torch.zeros(1, 8, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError):
+        tres.fused_resblock_subblock(x, w, None, w, None, kernel_size=3,
+                                     dilation=1)

@@ -33,6 +33,17 @@ REPO = Path(__file__).resolve().parents[1]
 IDS = [1, 4, 7, 12, 5, 30, 9, 2, 17, 22, 3, 14, 8, 11, 6, 25, 19, 2]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the tiny shapes gain nothing from more, and in
+    a parallel test run (a process per core) more oversubscribe the CPU
+    and slow every op by orders of magnitude."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module", params=[1, 3], ids=["single", "multi"])
 def sessions(request, tmp_path_factory):
     voice = create_test_voice(
@@ -227,14 +238,15 @@ def test_port_runs_with_jax_blocked(tmp_path):
         root = {str(tmp_path)!r}
         create_test_voice(root + "/en_US/tiny_low", full_size=False)
         tts = Mimic3TextToSpeechSystem(
-            Mimic3Settings(voices_directories=[root])
+            Mimic3Settings(voices_directories=[root]), device="cpu"
         )
         tts.voice = "en_US/tiny_low"
         wav = tts.text_to_wav("A rainbow is a meteorological phenomenon.")
         assert len(wav) > 1000
         rc = mimic3_tpu_torch.cli.main([
-            "--voices-dir", root, "--voice", "en_US/tiny_low",
-            "--deterministic", "--output-dir", root + "/out", "Hello world.",
+            "--voices-dir", root, "--voice", "en_US/tiny_low", "--device",
+            "cpu", "--deterministic", "--output-dir", root + "/out",
+            "Hello world.",
         ])
         assert rc == 0
         with wave.open(root + "/out/Hello_world.wav") as f:
@@ -244,7 +256,7 @@ def test_port_runs_with_jax_blocked(tmp_path):
         print("ok")
         """
     )
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-c", code], env=env, cwd=tmp_path,
         capture_output=True, text=True, timeout=300,
