@@ -1,11 +1,14 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
 Builds the port's CUDA kernels from this checkout (one nvcc per source,
-started together) and holds each against its plain PyTorch version at
-the shapes its path gives it.  Then drives the port's paths on a
-full-width ``*_low`` voice with random weights made from a seed, each
-with the kernel launch counts set to 0 just before it and read just
-after:
+started together), checks in their SASS that both run on tensor cores
+(HMMA/HGMMA), and holds each against its plain PyTorch version at the
+shapes its path gives it, f32 (FFMA) and bf16 (tensor cores), timed in
+turns with CUDA events; the bf16 stage is also swept over the decoder's
+fusable stages (the sweep that sets the bf16 stage gate).  Then drives
+the port's paths on a full-width ``*_low`` voice with random weights made
+from a seed, each with the kernel launch counts set to 0 just before it
+and read just after:
 
 - the main path: engine -> voice -> session -> VITS -> WAV, in process
   and through the CLI;
@@ -19,9 +22,10 @@ after:
     python3 chip_smoke.py
 
 Prints one line per phase, then a JSON line with each kernel's launches,
-error and times, then ``{"ok": true, "device": {...}}`` as the last line.
-Exits non-zero, printing no result, when any phase fails or no card is
-visible.  Needs no network and no JAX.
+error, times, bound and tensor-core instruction counts, then
+``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero,
+printing no result, when any phase fails or no card is visible.  Needs no
+network, no JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from __future__ import annotations
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -74,6 +79,11 @@ F32_BAR = "2e-4 + 1e-3*|ref|"
 # tap moves far more than it moves the output
 BF16_CORR = 0.999
 BF16_BRANCH_CORR = 0.9999
+# published H100 SXM peaks (NVIDIA's H100 datasheet): the bound of a
+# kernel is the larger of its operations over the peak of their type and
+# its bytes over the memory rate
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_BYTES = 3.35e12
 
 
 def say(phase: str, msg: str) -> None:
@@ -104,6 +114,76 @@ def cuda_ms(fn, iters: int = 20) -> float:
 
 def tensor_corr(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.corrcoef(torch.stack([a.ravel(), b.ravel()]))[0, 1])
+
+
+def bound(flops: float, nbytes: float, dtype) -> tuple:
+    """(least ms the card could take, what bounds it)."""
+    compute, memory = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return max(compute, memory) * 1e3, (
+        "operations" if compute >= memory else "bytes"
+    )
+
+
+def stage_work(weights, batch, t_in, t_out, dtype):
+    """(FLOPs, bytes) of one stage launch: 2*C*C*K per sample for every
+    resblock conv (2*C^2*126 for kernels 3/7/11, 3 dilations), the
+    upsampler's 2*Cin*C*K/stride and conv_post's 2*C*K per output sample;
+    the input read and the output written once, and the weights."""
+    c = weights.channels
+    flops = sum(2 * c * c * k for k, _ in weights.convs) * batch * t_out
+    if weights.ups_kernel:
+        flops += (2 * weights.in_channels * c * weights.ups_kernel
+                  / weights.ups_stride * batch * t_out)
+    if weights.has_post:
+        flops += 2 * c * weights.post_kernel * batch * t_out
+    elt = torch.finfo(dtype).bits // 8
+    out_bytes = batch * t_out * (4 if weights.has_post else c * elt)
+    w_bytes = weights.b.numel() * 4 + (
+        weights.fragments.numel() * 4 if dtype == torch.bfloat16
+        else weights.w.numel() * 4
+    )
+    return flops, batch * weights.in_channels * t_in * elt + out_bytes + w_bytes
+
+
+def resblock_work(c, t, b, k, dtype):
+    """(FLOPs, bytes) of one resblock step: 4*C*C*K per sample; x read and
+    out written once, and both convs' weights."""
+    elt = torch.finfo(dtype).bits // 8
+    return 4 * c * c * k * b * t, 2 * b * c * t * elt + 2 * c * c * k * elt
+
+
+def sass_counts(lib_path: Path) -> dict:
+    """Tensor-core instructions per kernel of a built library, from
+    ``cuobjdump -sass``: {kernel: {"HMMA": n, "HGMMA": m}}."""
+    from mimic3_tpu_torch.ops import build
+
+    tool = Path(build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run(
+        [str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
+        check=True, timeout=300,
+    ).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            name = pretty_kernel(head.group(1))
+            counts[name] = {"HMMA": 0, "HGMMA": 0}
+        elif name is not None:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\.", line):
+                    counts[name][op] += 1
+    return counts
+
+
+def pretty_kernel(mangled: str) -> str:
+    """``subblock_mma_kernel<4>`` from its mangled name."""
+    m = re.search(r"\d+((?:stage|subblock)(?:_mma)?_kernel)I(.*?)EEv",
+                  mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"Li(\d+)E|(13__nv_bfloat16)|(f)", m.group(2))
+    names = [n or ("bf16" if b else "float") for n, b, _ in args]
+    return f"{m.group(1)}<{','.join(names)}>"
 
 
 def compare(name, got, ref, dtype, kernel, plain, iters=20, residual=None):
@@ -181,6 +261,8 @@ def stage_inputs(rng, c, c_in, post, device):
 
 
 def check_stage(name, rng, c, c_in, post, batch, t, dtype):
+    """Kernel against plain; returns (max_abs_err, ms, plain_ms, bound_ms,
+    bound_by)."""
     from mimic3_tpu_torch.ops import stage
 
     dev = torch.device("cuda")
@@ -198,8 +280,15 @@ def check_stage(name, rng, c, c_in, post, batch, t, dtype):
     def plain():
         return stage.hifigan_stage_plain(rb, x, KERNELS, DILATIONS, **kw)
 
-    return compare(f"stage: {name} x={tuple(x.shape)}", kernel(), plain(),
-                   dtype, kernel, plain)
+    out = kernel()
+    t_out = out.shape[-1]
+    bound_ms, bound_by = bound(*stage_work(weights, batch, t, t_out, dtype),
+                               dtype)
+    err, ms, plain_ms = compare(f"stage: {name} x={tuple(x.shape)}", out,
+                                plain(), dtype, kernel, plain)
+    say("bound", f"stage: {name} {str(dtype)[6:]}: bound {bound_ms:.4f} ms "
+        f"({bound_by}), kernel at {bound_ms / ms:.1%} of it")
+    return err, ms, plain_ms, bound_ms, bound_by
 
 
 # ---------------------------------------------------------------------------
@@ -211,11 +300,11 @@ def check_resblock(rng, c, t, b, k, d, dtype, bias=True, iters=20):
     from mimic3_tpu_torch.ops import resblock
 
     dev = torch.device("cuda")
-    bound = 1.0 / np.sqrt(c * k)
+    scale = 1.0 / np.sqrt(c * k)
 
     def uniform(*shape):
         return torch.from_numpy(
-            rng.uniform(-bound, bound, shape).astype(np.float32)
+            rng.uniform(-scale, scale, shape).astype(np.float32)
         ).to(dev)
 
     w1, w2 = uniform(c, c, k), uniform(c, c, k)
@@ -234,8 +323,12 @@ def check_resblock(rng, c, t, b, k, d, dtype, bias=True, iters=20):
 
     name = (f"resblock: x={tuple(x.shape)} K={k} d={d}"
             + ("" if bias else " no bias"))
-    return compare(name, kernel(), plain(), dtype, kernel, plain, iters,
-                   residual=x)
+    err, ms, plain_ms = compare(name, kernel(), plain(), dtype, kernel,
+                                plain, iters, residual=x)
+    bound_ms, bound_by = bound(*resblock_work(c, t, b, k, dtype), dtype)
+    say("bound", f"{name} {str(dtype)[6:]}: bound {bound_ms:.4f} ms "
+        f"({bound_by}), kernel at {bound_ms / ms:.1%} of it")
+    return err, ms, plain_ms, bound_ms, bound_by
 
 
 # ---------------------------------------------------------------------------
@@ -270,14 +363,17 @@ def voice_copy(voice: Path, dest: Path, **tpu) -> Path:
 
 def make_voices(root: Path):
     """The full-width test voice; a copy whose decoder stages all take
-    the plain path (the end-to-end reference); and a copy with a serving
-    bucket grid cut to what the server phase sends, so its warmup runs
-    dozens of signatures rather than hundreds."""
+    the plain path (the end-to-end reference); a copy that also decodes
+    in f32 (the reference both bf16 paths are held to); and a copy with a
+    serving bucket grid cut to what the server phase sends, so its warmup
+    runs dozens of signatures rather than hundreds."""
     from mimic3_tpu_torch.runtime.testvoice import create_test_voice
 
     voice = create_test_voice(root / "en_US" / "test_low", seed=1234)
     plain = voice_copy(voice, root / "en_US" / "plain_low",
                        pallas_stage_max_channels=0)
+    voice_copy(voice, root / "en_US" / "f32_low",
+               pallas_stage_max_channels=0, decoder_dtype="float32")
     voice_copy(voice, root / "en_US" / "serve_low",
                text_buckets=[32, 64, 128, 256], frame_buckets=[128, 256, 512],
                batch_buckets=[1, 2, 4])
@@ -368,16 +464,27 @@ def main_path(root, voice_dir, plain_dir, card_line):
     ref_wav = parse_wav(ref_det.text_to_wav(TEXT))
     plain_voice = load_from_directory(plain_dir)
     plain_batch = plain_voice.session.synthesize_ids_batch(batch_ids, seed=7)
+    # the same noise and durations with an f32 decoder: the reference
+    # that both bf16 decoders approximate (the plain bf16 path rounds
+    # every op's output; the kernels keep f32 sums inside a stage)
+    f32_batch = load_from_directory(
+        root / "en_US" / "f32_low"
+    ).session.synthesize_ids_batch(batch_ids, seed=7)
     c_det = corr(det_wav, ref_wav)
     c_batch = min(corr(a, b) for a, b in zip(batch_out, plain_batch))
+    c_kernel = min(corr(a, b) for a, b in zip(batch_out, f32_batch))
+    c_plain = min(corr(a, b) for a, b in zip(plain_batch, f32_batch))
     say("check", f"kernel path vs plain path: deterministic f32 corr "
-        f"{c_det:.6f}, bf16 batch min corr {c_batch:.6f}")
+        f"{c_det:.6f}, bf16 batch min corr {c_batch:.6f}; against the f32 "
+        f"decoder: bf16 kernel path {c_kernel:.6f}, bf16 plain path "
+        f"{c_plain:.6f}")
     if det_wav.size != ref_wav.size or not c_det >= 0.999:
         raise AssertionError("deterministic audio disagrees with plain")
-    if [a.size for a in batch_out] != [a.size for a in plain_batch]:
+    if not ([a.size for a in batch_out] == [a.size for a in plain_batch]
+            == [a.size for a in f32_batch]):
         raise AssertionError("batch lengths disagree with plain")
-    if not c_batch > 0.99:
-        raise AssertionError("bf16 batch audio disagrees with plain")
+    if not (c_kernel > 0.99 and c_kernel >= c_plain):
+        raise AssertionError("bf16 batch audio strays from the f32 decoder")
 
     proc = subprocess.run(
         [sys.executable, "-m", "mimic3_tpu_torch.cli",
@@ -640,6 +747,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device visible: this smoke run needs one")
     from mimic3_tpu_torch.ops import build, resblock, stage
+    from mimic3_tpu_torch.runtime.session import STAGE_MAX_CHANNELS
 
     card_line = card()
     nvcc = subprocess.run(
@@ -657,12 +765,25 @@ def main() -> int:
     with ThreadPoolExecutor(2) as pool:
         list(pool.map(lambda m: m.build_library(), (stage, resblock)))
     say("build", f"both kernels in {time.perf_counter() - t0:.1f} s")
+    sass = {}
     for module in (stage, resblock):
         log = module.library_path().with_suffix(".log")
         regs = sorted({ln.split(":", 1)[1].strip() for ln in
                        log.read_text().splitlines() if "registers" in ln})
         say("build", f"{module.library_path().relative_to(REPO)} ptxas: "
             + " | ".join(regs))
+        counts = sass_counts(module.library_path())
+        say("sass", f"{module.library_path().name}: " + "; ".join(
+            f"{k}: HMMA {v['HMMA']}, HGMMA {v['HGMMA']}"
+            for k, v in sorted(counts.items())
+        ))
+        sass[module] = {op: sum(v[op] for v in counts.values())
+                        for op in ("HMMA", "HGMMA")}
+        if not sass[module]["HMMA"] + sass[module]["HGMMA"]:
+            raise AssertionError(
+                f"{module.library_path().name} has no tensor-core "
+                "instruction"
+            )
 
     # -- 3. stage kernel against plain ---------------------------------------------
     rng = np.random.RandomState(0)
@@ -671,15 +792,38 @@ def main() -> int:
         t_in = frames * 128  # the 64-channel input of the last stage
         for dtype in (torch.float32, torch.bfloat16):
             for batch in (1, 4):
-                stage_results[(frames, batch, dtype)] = check_stage(
+                stage_results[(32, frames, batch, dtype)] = check_stage(
                     f"last stage ups+stage+post, {frames} frames, B={batch}",
                     rng, 32, 64, True, batch, t_in, dtype,
                 )
+    # the gate sweep: the C=64 stage with its upsampler 128 -> 64, in bf16
+    for frames in FRAME_BUCKETS:
+        for batch in (1, 4):
+            stage_results[(64, frames, batch, torch.bfloat16)] = check_stage(
+                f"C=64 stage ups 128->64, {frames} frames, B={batch}",
+                rng, 64, 128, False, batch, frames * 64, torch.bfloat16,
+            )
     for dtype in (torch.float32, torch.bfloat16):
         check_stage("C=64 stage alone, 256 frames, B=1", rng, 64, None,
                     False, 1, 256 * 128, dtype)
     check_stage("last stage, ragged length", rng, 32, 64, True, 1, 12345,
                 torch.float32)
+    check_stage("last stage, ragged length", rng, 32, 64, True, 1, 12345,
+                torch.bfloat16)
+    # the bf16 gate: the widest C at which the kernel is no slower than
+    # plain at B=1 and B=4 in both frame buckets
+    gate = 0
+    for c in (32, 64):
+        wins = [stage_results[(c, f, b, torch.bfloat16)][1]
+                <= stage_results[(c, f, b, torch.bfloat16)][2]
+                for f in FRAME_BUCKETS for b in (1, 4)]
+        say("gate", f"bf16 C={c}: kernel no slower than plain in "
+            f"{sum(wins)} of {len(wins)} cases (128/256 frames x B=1/4)")
+        if not all(wins):
+            break
+        gate = c
+    say("gate", f"bf16 stage_max_channels from this sweep: {gate} (the "
+        f"session's default: {STAGE_MAX_CHANNELS[torch.bfloat16]})")
 
     # -- 4. resblock kernel against plain -------------------------------------------
     # the cases of tests/test_pallas_ops.py, a ragged T, no bias, then C
@@ -693,7 +837,7 @@ def main() -> int:
         check_resblock(rng, 64, 1000, 2, 7, 3, dtype, bias=False)
         for c, t in ((32, 65536), (64, 32768), (128, 16384), (256, 2048)):
             check_resblock(rng, c, t, 1, 11, 5, dtype)
-    res_err, res_ms, res_plain_ms = check_resblock(
+    res_result = check_resblock(
         rng, 128, 65536, 16, 3, 5, torch.bfloat16, iters=5
     )
 
@@ -711,31 +855,35 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    # the deterministic CLI path's shape and dtype: 128 frames, B=1, f32
-    err, ms, plain_ms = stage_results[(128, 1, torch.float32)]
-    print(json.dumps({"kernels": [
-        {
-            "name": "hifigan_stage_fused",
+    # the default (bf16) main path's last stage: 128 frames, B=1
+    stage_row = stage_results[(32, 128, 1, torch.bfloat16)]
+    rows = []
+    for module, name, source, replaces, n, (err, ms, plain_ms, b_ms, b_by) in (
+        (stage, "hifigan_stage_fused", "stage.cu", "stage.py:399",
+         sum(launches.values()), stage_row),
+        (resblock, "fused_resblock_subblock", "resblock.cu",
+         "resblock.py:136", res_launches, res_result),
+    ):
+        rows.append({
+            "name": name,
             "route": "cuda",
-            "source": "mimic3_tpu_torch/csrc/stage.cu",
-            "replaces": "mimic3_tpu/ops/stage.py:399",
-            "launches": sum(launches.values()),
-            "launches_by_path": launches,
+            "source": f"mimic3_tpu_torch/csrc/{source}",
+            "replaces": f"mimic3_tpu/ops/{replaces}",
+            "launches": n,
             "max_abs_err": err,
             "ms": ms,
             "plain_ms": plain_ms,
-        },
-        {
-            "name": "fused_resblock_subblock",
-            "route": "cuda",
-            "source": "mimic3_tpu_torch/csrc/resblock.cu",
-            "replaces": "mimic3_tpu/ops/resblock.py:136",
-            "launches": res_launches,
-            "max_abs_err": res_err,
-            "ms": res_ms,
-            "plain_ms": res_plain_ms,
-        },
-    ]}), flush=True)
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "bound_share": b_ms / ms,
+            # no single PyTorch call computes either function: the plain
+            # version's cuDNN chain is the library yardstick
+            "library_ms": plain_ms,
+            "tensor_core_instructions": sass[module],
+        })
+    rows[0]["launches_by_path"] = launches
+    rows[0]["bf16_stage_gate"] = gate
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -14,12 +14,34 @@
 //
 // What bounds it on this card: the step does 4*C*C*K FLOPs per sample
 // against 2*C activations read and C written (at C = 128, K = 3 in bf16,
-// 384 FLOPs per byte), so it is bound by instruction issue, not by
-// memory: f32 FMAs plus the shared-memory activation reads and L1
-// weight reads that feed them.  No tensor cores yet: a later version
-// would run each conv as an MMA over [tile, Cin*K] x [Cin*K, C].
+// 384 FLOPs per byte), so it is bound by operations, not by memory.
 //
-// Design (simple and correct first):
+// Two paths:
+//
+// - bf16, C >= 16: tensor cores (subblock_mma_kernel).  Each conv is the
+//   implicit GEMM of csrc/conv_tile.cuh: lrelu(x) and the intermediate h
+//   sit in shared memory as [positions][C] bf16 (transposed once on the
+//   global load), A fragments come from ldmatrix at the tap's row offset,
+//   the weights from fragments packed on the host, and mma.sync.m16n8k16
+//   sums in f32.  The first conv's epilogue adds the bias, applies lrelu,
+//   zeroes rows outside [0, T) (torch's zero padding) and rounds h to
+//   bf16; the second conv's adds the bias into an f32 tile in shared
+//   memory, transposed back so that the residual add and the store are
+//   coalesced.  A block is (time tile, batch row, output-channel group):
+//   every group recomputes all of h for its tile, which is cheap next to
+//   idle SMs when T is short (C = 256, T = 2048).  The wrapper
+//   (ops/resblock.py) picks the rows per block and the number of groups
+//   from a model of waves and warp items, so that the grid fills the card.
+//   The first conv's rows are a multiple of 32 and the tile is those rows
+//   less the second halo, so only the second conv rounds up.
+//   What bounds it now: issue of ldmatrix, weight loads and MMAs from one
+//   or two 8-warp blocks per SM (mma.sync, not wgmma), and the recompute
+//   of h.
+// - f32 (and bf16 below C = 16, under the MMA depth): FFMA
+//   (subblock_kernel), as before.  f32 FMAs plus the shared-memory
+//   activation reads and L1 weight reads that feed them bound it.
+//
+// FFMA design (simple and correct first):
 // - one block per (batch row, time tile).  The tile plus the exact halos
 //   (d*(K-1)/2 for the first conv, (K-1)/2 for the second) of lrelu(x) is
 //   loaded into shared memory as f32, then the first conv writes the
@@ -40,6 +62,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include "conv_tile.cuh"
 
 namespace {
 
@@ -213,6 +237,180 @@ cudaError_t launch(const void* x, void* out, const float* w1, const float* b1,
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16 on tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaThreads = 256;
+constexpr int kMmaWarps = kMmaThreads / kWarp;
+constexpr int kMW = 2;  // 16-row MMA tiles per warp item: 32 rows
+constexpr int kRows = 16 * kMW;
+
+__host__ __device__ __forceinline__ int round_up(int v, int m) {
+  return (v + m - 1) / m * m;
+}
+
+// Shared-memory plan of one block (bytes), shared by kernel and launcher:
+// h [rh][ld] bf16, then a region that holds lrelu(x) [ra][ld] bf16 during
+// the first conv and the second conv's f32 branch [cg][m2 + 4] after it.
+struct MmaPlan {
+  int cp, ld, h1, h2, tile, m2, rh, ra, cg, ldo;
+  size_t h_bytes, smem;
+  __host__ __device__ MmaPlan(int c, int k, int dil, int m1, int groups) {
+    cp = round_up(c, 16);
+    ld = cp + 8;
+    h1 = dil * (k - 1) / 2;
+    h2 = (k - 1) / 2;
+    tile = m1 - 2 * h2;
+    m2 = round_up(tile, kRows);
+    rh = m2 + 2 * h2;  // >= m1: rows past m1 feed only rows past the tile
+    ra = m1 + 2 * h1;
+    cg = cp / groups;
+    ldo = m2 + 4;  // 2 * ldo % 32 == 8: the transposed writes spread banks
+    h_bytes = (size_t)rh * ld * 2;
+    const size_t a_bytes = (size_t)ra * ld * 2;
+    const size_t o_bytes = (size_t)cg * ldo * 4;
+    smem = h_bytes + (a_bytes > o_bytes ? a_bytes : o_bytes);
+  }
+};
+
+template <int NW>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+    subblock_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                        __nv_bfloat16* __restrict__ out,
+                        const uint4* __restrict__ w1,
+                        const float* __restrict__ b1,
+                        const uint4* __restrict__ w2,
+                        const float* __restrict__ b2, int c, int T, int k,
+                        int dil, int m1, int groups) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const MmaPlan p(c, k, dil, m1, groups);
+  __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* a = reinterpret_cast<__nv_bfloat16*>(smem_raw + p.h_bytes);
+  float* o = reinterpret_cast<float*>(smem_raw + p.h_bytes);
+  const int kcs = p.cp / 16;
+  const int row = blockIdx.y;
+  const int group = blockIdx.z;
+  const int t0 = blockIdx.x * p.tile;
+  const int pos_h = t0 - p.h2;     // sequence position of h row 0
+  const int pos_a = pos_h - p.h1;  // sequence position of a row 0
+  const __nv_bfloat16* xb = x + (size_t)row * c * T;
+  __nv_bfloat16* ob = out + (size_t)row * c * T;
+
+  // lrelu(x) -> a, transposed to [position][channel]; a thread takes two
+  // channels of one position, neighbouring threads neighbouring positions
+  const int pairs = p.cp / 2;
+  for (int idx = threadIdx.x; idx < p.ra * pairs; idx += kMmaThreads) {
+    const int cpair = idx / p.ra;
+    const int r = idx - cpair * p.ra;
+    const int t = pos_a + r;
+    const int ci = 2 * cpair;
+    float v0 = 0.f, v1 = 0.f;
+    if (t >= 0 && t < T) {
+      if (ci < c) v0 = lrelu(__bfloat162float(xb[(size_t)ci * T + t]));
+      if (ci + 1 < c)
+        v1 = lrelu(__bfloat162float(xb[(size_t)(ci + 1) * T + t]));
+    }
+    *reinterpret_cast<uint32_t*>(a + r * p.ld + ci) =
+        conv_tile::pack_bf16x2(v0, v1);
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / kWarp;
+  // first conv: all channels of h over the tile and the second halo
+  const int ngrp1 = p.cp / (8 * NW);
+  for (int item = warp; item < (m1 / kRows) * ngrp1; item += kMmaWarps) {
+    const int r0 = item / ngrp1 * kRows;
+    const int n0 = item % ngrp1 * 8 * NW;
+    // this lane's biases, loaded before the MMAs so they arrive meanwhile
+    float bias[NW][2];
+#pragma unroll
+    for (int ni = 0; ni < NW; ++ni) {
+      bias[ni][0] = __ldg(b1 + n0 + conv_tile::acc_col(ni, 0));
+      bias[ni][1] = __ldg(b1 + n0 + conv_tile::acc_col(ni, 1));
+    }
+    float acc[kMW][NW][4];
+    conv_tile::zero(acc);
+    conv_tile::conv_mma<kMW, NW, false>(acc, a, p.ld, r0, k, dil, kcs, w1,
+                                        kcs, n0 / 16);
+#pragma unroll
+    for (int mi = 0; mi < kMW; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NW; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int r = r0 + conv_tile::acc_row(mi, e);
+          const int co = n0 + conv_tile::acc_col(ni, e);
+          const int t = pos_h + r;
+          const bool inside = t >= 0 && t < T;
+          const float v0 = inside ? lrelu(acc[mi][ni][e] + bias[ni][0]) : 0.f;
+          const float v1 =
+              inside ? lrelu(acc[mi][ni][e + 1] + bias[ni][1]) : 0.f;
+          *reinterpret_cast<uint32_t*>(h + r * p.ld + co) =
+              conv_tile::pack_bf16x2(v0, v1);
+        }
+  }
+  __syncthreads();  // h complete; a is dead, o takes its place
+
+  // second conv: this block's output-channel group over the tile
+  const int cg0 = group * p.cg;
+  const int ngrp2 = p.cg / (8 * NW);
+  for (int item = warp; item < (p.m2 / kRows) * ngrp2; item += kMmaWarps) {
+    const int r0 = item / ngrp2 * kRows;
+    const int n0 = item % ngrp2 * 8 * NW;  // within the group
+    float bias[NW][2];
+#pragma unroll
+    for (int ni = 0; ni < NW; ++ni) {
+      bias[ni][0] = __ldg(b2 + cg0 + n0 + conv_tile::acc_col(ni, 0));
+      bias[ni][1] = __ldg(b2 + cg0 + n0 + conv_tile::acc_col(ni, 1));
+    }
+    float acc[kMW][NW][4];
+    conv_tile::zero(acc);
+    conv_tile::conv_mma<kMW, NW, false>(acc, h, p.ld, r0, k, 1, kcs, w2,
+                                        kcs, (cg0 + n0) / 16);
+#pragma unroll
+    for (int mi = 0; mi < kMW; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NW; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int co = n0 + conv_tile::acc_col(ni, e);
+          o[co * p.ldo + r0 + conv_tile::acc_row(mi, e)] =
+              acc[mi][ni][e] + bias[ni][e & 1];
+        }
+  }
+  __syncthreads();
+
+  // residual add and store, coalesced along time
+  const int n = min(p.tile, T - t0);
+  const int cg = min(p.cg, c - cg0);
+  for (int idx = threadIdx.x; idx < cg * n; idx += kMmaThreads) {
+    const int co = idx / n;
+    const int i = idx - co * n;
+    const size_t g = (size_t)(cg0 + co) * T + t0 + i;
+    ob[g] = __float2bfloat16(__bfloat162float(xb[g]) + o[co * p.ldo + i]);
+  }
+}
+
+template <int NW>
+cudaError_t launch_mma(const void* x, void* out, const void* w1,
+                       const float* b1, const void* w2, const float* b2,
+                       int batch, int c, int T, int k, int dil, int m1,
+                       int groups, cudaStream_t stream) {
+  auto kernel = subblock_mma_kernel<NW>;
+  const MmaPlan p(c, k, dil, m1, groups);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((T + p.tile - 1) / p.tile, batch, groups);
+  kernel<<<grid, kMmaThreads, p.smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out),
+      static_cast<const uint4*>(w1), b1, static_cast<const uint4*>(w2), b2, c,
+      T, k, dil, m1, groups);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  Returns a cudaError_t value:
@@ -236,4 +434,30 @@ extern "C" int resblock_subblock_launch(const void* x, void* out,
                                       T, k, dil, tile, st);
   return (int)launch<float>(x, out, w1f, b1f, w2f, b2f, batch, c, T, k, dil,
                             tile, st);
+}
+
+// bf16 on tensor cores.  w1, w2: fragments packed by ops/mma.py for C
+// padded to a multiple of 16; b1, b2: f32, padded likewise.  m1: rows of
+// the first conv per block (a multiple of 32 above 2 * ((K - 1) / 2));
+// groups: output-channel groups per tile.
+extern "C" int resblock_subblock_mma_launch(const void* x, void* out,
+                                            const void* w1, const void* b1,
+                                            const void* w2, const void* b2,
+                                            int batch, int c, int T, int k,
+                                            int dil, int m1, int groups,
+                                            void* stream) {
+  const int cp = round_up(c, 16);
+  if (c < 16 || c > kMaxChannels || T <= 0 || k <= 0 || k % 2 == 0 ||
+      dil <= 0 || batch <= 0 || m1 <= 0 || m1 % kRows != 0 ||
+      m1 <= k - 1 || groups <= 0 || cp % groups != 0 ||
+      (cp / groups) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const float* b1f = static_cast<const float*>(b1);
+  const float* b2f = static_cast<const float*>(b2);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((cp / groups) % 32 == 0)
+    return (int)launch_mma<4>(x, out, w1, b1f, w2, b2f, batch, c, T, k, dil,
+                              m1, groups, st);
+  return (int)launch_mma<2>(x, out, w1, b1f, w2, b2f, batch, c, T, k, dil,
+                            m1, groups, st);
 }

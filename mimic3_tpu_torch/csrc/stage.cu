@@ -18,16 +18,42 @@
 // through HBM (about 40 activation round trips per stage at C = 32).
 // Fused, the stage does 2*C*C*sum(K) FLOPs per sample (sum(K) = 126 for
 // kernels 3/7/11) against only its input and output bytes, so it is
-// bound by instruction issue: f32 FMAs plus the shared-memory activation
-// reads and L1-broadcast weight reads that feed them.  The four f32
-// buffers fill a block's shared memory, so one block (12 warps at C = 32)
-// runs per SM and latency is hidden by warps plus per-thread register
-// blocking.  Measured on an H100 80GB HBM3 (700 W) for the last decoder
-// stage, x = [1, 64, 32768] f32: 1.56 ms, about 25% of the 67 TFLOP/s f32
-// peak counting the 1.49x halo recompute.  No tensor cores yet: a later
-// version would run each conv as an MMA over [tile, Cin*K] x [Cin*K, C].
+// bound by operations.
 //
-// Design (simple and correct first):
+// Two paths:
+//
+// - bf16, C in {16, 32, 64}: every resblock conv on tensor cores
+//   (stage_mma_kernel), the implicit-GEMM tile of csrc/conv_tile.cuh.
+//   Three bf16 buffers [rows][C + 8] (stage input, resblock state, first
+//   conv's output) and an f32 [rows][C + 1] sum over resblocks replace the
+//   four f32 [C][L] buffers of the FFMA path, so a block holds a tile of
+//   up to 458 samples at C = 32 with conv_post.  Each conv computes only
+//   the rows the rest of its resblock needs (the tile plus the receptive
+//   half-width of the convs after it, rounded up to 16 rows), so the
+//   halo's recompute is about 1.13x at C = 32 (1.49x on the FFMA path,
+//   which runs every conv over the whole haloed tile).  The first conv of
+//   a step applies lrelu to its A fragments in registers (rounded to
+//   bf16, as torch's bf16 leaky_relu), its epilogue writes
+//   lrelu(conv + b), zero outside [0, T); the second adds the bias and
+//   the residual into the state (rounded to bf16, as the plain path
+//   does) or, at a resblock's last step, into the f32 sum.  The
+//   upsampler and conv_post stay on FFMA inside the same launch.  A
+//   warp item is 16 rows x all C channels; 16 warps (12 at C = 64), one
+//   block per SM.  At C <= 32 each conv's fragments are staged in shared
+//   memory once per block, and the launch plan is read once.  The
+//   upsampler gives a thread 8 channels at 4 positions of one phase, so a
+//   weight load feeds 32 FMAs.  The wrapper (ops/stage.py) picks the tile
+//   from a model of waves and warp rounds, so short inputs get short
+//   tiles and fill the card.  What bounds it now (measured by taking
+//   parts out, PERF.md): the MMA loop (mma.sync, not wgmma, 16-row items)
+//   takes about half the time, the FFMA upsampler about a fifth, the
+//   epilogues, barriers and staging the rest.
+// - f32 (and bf16 at C = 8, under the MMA depth): FFMA (stage_kernel), as
+//   before.  Measured on an H100 80GB HBM3 (700 W) for the last decoder
+//   stage, x = [1, 64, 32768] f32: 1.56 ms, about 25% of the 67 TFLOP/s
+//   f32 peak counting the 1.49x halo recompute.
+//
+// FFMA design (simple and correct first):
 // - one thread block per (batch row, time tile); the tile plus a halo of
 //   the stage's receptive field (60 samples for k = 11, d = 1/3/5, + 3 for
 //   conv_post) is loaded once into shared memory as f32.  The upsampler
@@ -45,6 +71,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include "conv_tile.cuh"
 
 namespace {
 
@@ -289,7 +317,7 @@ cudaError_t launch(const void* x, void* out, const float* w, const float* b,
   return cudaGetLastError();
 }
 
-template <typename T_io>
+// the f32 FFMA kernel, by channel count
 cudaError_t dispatch(int c, const void* x, void* out, const float* w,
                      const float* b, const int4* plan, int batch, int c_in,
                      int t_in, int T, int n_res, int n_steps, int ups_k,
@@ -297,7 +325,7 @@ cudaError_t dispatch(int c, const void* x, void* out, const float* w,
                      int halo, cudaStream_t stream) {
 #define STAGE_CASE(CH)                                                     \
   case CH:                                                                 \
-    return launch<CH, T_io>(x, out, w, b, plan, batch, c_in, t_in, T,      \
+    return launch<CH, float>(x, out, w, b, plan, batch, c_in, t_in, T,     \
                             n_res, n_steps, ups_k, ups_stride, ups_pad,    \
                             has_post, tile, halo, stream);
   switch (c) {
@@ -309,6 +337,331 @@ cudaError_t dispatch(int c, const void* x, void* out, const float* w,
       return cudaErrorInvalidValue;
   }
 #undef STAGE_CASE
+}
+
+
+// ---------------------------------------------------------------------------
+// bf16 on tensor cores
+// ---------------------------------------------------------------------------
+
+// Warps of a block (one block per SM): 16 at C <= 32, 12 at C = 64 (the
+// fastest of 8/12/16 warps and 16/32-row items measured on the decoder's
+// stages; ops/stage.py mma_warps mirrors it).  A warp item is 16 rows x
+// all C channels.
+template <int C>
+constexpr int kMmaWarps = C <= 32 ? 16 : 12;
+constexpr int kItemRows = 16;
+
+// Shared-memory plan of one block, shared by kernel and launcher.  Buffer
+// row i holds sequence position t0 - halo + i; the stage output y covers
+// rows [ylo, ylo + yn) with yn = tile + 2 * post_pad.  Every conv computes
+// a whole number of 16-row MMA tiles, so buffers carry 16 rows of slack
+// past L = tile + 2 * halo; rows past a conv's needed range feed only
+// rows past the next conv's.
+//   x0 [lb][ld] bf16   stage input (the upsampler's output when fused)
+//   s  [lb][ld] bf16   resblock state
+//   u  [lb][ld] bf16   lrelu(conv1 + b), the second conv's operand
+//   y  [yn][C + 1] f32 sum over resblocks (odd stride: the transposed
+//                      reads of the store and of conv_post spread banks)
+//   plan  the launch plan's rows, read once
+//   w  at C <= 32, the current conv's MMA fragments (max_k taps, at most
+//      22.5 KB), staged from device memory once per conv: every warp item
+//      reads them, and through L1 (which shared memory leaves small) they
+//      would come from L2 again and again.  At C = 64 a conv's fragments
+//      (90 KB) would cost the tile more than the L2 reads cost, so warps
+//      read them from device memory.
+// The upsampler stages lrelu(x_in) as f32 [c_in][lin] over s, u and y.
+constexpr int kMaxConvs = 64;  // rows of the launch plan a block holds
+template <int C>
+constexpr bool kStageWeights = C <= 32;
+
+struct StagePlan {
+  int ld, lb, yn, ylo, ldy, w_uint4;
+  size_t buf_bytes, plan_offset, w_offset, smem;
+  __host__ __device__ StagePlan(int c, int tile, int halo, int post_pad,
+                                int max_k) {
+    ld = c + 8;
+    lb = tile + 2 * halo + kItemRows;
+    yn = tile + 2 * post_pad;
+    ylo = halo - post_pad;
+    ldy = c + 1;
+    w_uint4 = c <= 32 ? max_k * (c / 16) * (c / 16) * 32 : 0;
+    buf_bytes = (size_t)lb * ld * 2;
+    plan_offset = (3 * buf_bytes + (size_t)yn * ldy * 4 + 15) / 16 * 16;
+    w_offset = plan_offset + kMaxConvs * 16;
+    smem = w_offset + (size_t)w_uint4 * 16;
+  }
+};
+
+template <int C>
+__global__ void __launch_bounds__(32 * kMmaWarps<C>, 1)
+    stage_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                     void* __restrict__ out_ptr, const float* __restrict__ w,
+                     const float* __restrict__ b,
+                     const int4* plan, const uint4* __restrict__ frags,
+                     int c_in, int t_in,
+                     int T, int n_res, int n_steps, int ups_k,
+                     int ups_stride, int ups_pad, int has_post, int post_pad,
+                     int tile, int halo, int max_k) {
+  constexpr int NW = C / 8;  // one warp item: 16 rows x all C channels
+  constexpr int kcs = C / 16;
+  constexpr int kThreads = 32 * kMmaWarps<C>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const StagePlan p(C, tile, halo, post_pad, max_k);
+  __nv_bfloat16* x0 = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* s = x0 + p.lb * p.ld;
+  __nv_bfloat16* u = s + p.lb * p.ld;
+  float* y = reinterpret_cast<float*>(smem_raw + 3 * p.buf_bytes);
+  uint4* wsm = reinterpret_cast<uint4*>(smem_raw + p.w_offset);
+  int4* plan_s = reinterpret_cast<int4*>(smem_raw + p.plan_offset);
+  const int n_convs = (ups_k > 0) + 2 * n_res * n_steps + has_post;
+  for (int i = threadIdx.x; i < n_convs; i += kThreads) plan_s[i] = plan[i];
+  __syncthreads();
+  plan = plan_s;
+  const int L = tile + 2 * halo;
+  const int row = blockIdx.y;
+  const int t0 = blockIdx.x * tile;
+  const int pos0 = t0 - halo;  // sequence position of buffer row 0
+  int conv = 0;
+
+  if (ups_k > 0) {
+    // stage lrelu(x_in) for every input row this tile's outputs read
+    const int4 cu = plan[conv++];
+    const int m_lo = floordiv(pos0 + ups_pad - (ups_k - 1), ups_stride);
+    const int m_hi = floordiv(pos0 + L - 1 + ups_pad, ups_stride);
+    const int lin = m_hi - m_lo + 1;
+    float* xin = reinterpret_cast<float*>(s);
+    const __nv_bfloat16* xb = x + (size_t)row * c_in * t_in;
+    for (int idx = threadIdx.x; idx < c_in * lin; idx += kThreads) {
+      const int ci = idx / lin;
+      const int m = m_lo + (idx - ci * lin);
+      xin[idx] = (m >= 0 && m < t_in)
+                     ? lrelu(__bfloat162float(xb[(size_t)ci * t_in + m]))
+                     : 0.f;
+    }
+    __syncthreads();
+    // x0[i][co] = bias[co] + sum over taps j with (t + pad - j) % stride
+    // == 0 of sum_ci w[ci][j][co] * xin[ci][(t + pad - j) / stride], on
+    // FFMA.  A thread takes 8 channels at kUpsPos positions of one phase
+    // (i, i + stride, ...: the same taps, consecutive input rows), so each
+    // weight load (warp-uniform, through L1/L2) feeds 8 * kUpsPos FMAs
+    constexpr int kUpsPos = 4;
+    const int span = ups_stride * kUpsPos;
+    const int runs = (L + span - 1) / span;
+    for (int item = threadIdx.x; item < (C / 8) * ups_stride * runs;
+         item += kThreads) {
+      const int co0 = item / (ups_stride * runs) * 8;
+      const int rem = item - co0 / 8 * ups_stride * runs;
+      const int i0 = rem / runs + (rem % runs) * span;  // phase + run
+      const int base0 = pos0 + i0 + ups_pad;
+      float a[kUpsPos][8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float bias = __ldg(b + cu.y + co0 + c);
+#pragma unroll
+        for (int q = 0; q < kUpsPos; ++q) a[q][c] = bias;
+      }
+      const int j0 = base0 - floordiv(base0, ups_stride) * ups_stride;
+      for (int j = j0; j < ups_k; j += ups_stride) {
+        // input row of position i0 + q * stride: r0 + q + (taps above j)
+        const int r = (base0 - j) / ups_stride - m_lo;
+        const float4* wj =
+            reinterpret_cast<const float4*>(w + cu.x + j * C + co0);
+#pragma unroll 4
+        for (int ci = 0; ci < c_in; ++ci) {
+          const float4* wc = wj + ci * ups_k * (C / 4);
+          const float4 wa = __ldg(wc);
+          const float4 wb = __ldg(wc + 1);
+          const float* xr = xin + ci * lin + r;
+#pragma unroll
+          for (int q = 0; q < kUpsPos; ++q) {
+            const float v = xr[min(q, lin - 1 - r)];
+            a[q][0] = fmaf(wa.x, v, a[q][0]);
+            a[q][1] = fmaf(wa.y, v, a[q][1]);
+            a[q][2] = fmaf(wa.z, v, a[q][2]);
+            a[q][3] = fmaf(wa.w, v, a[q][3]);
+            a[q][4] = fmaf(wb.x, v, a[q][4]);
+            a[q][5] = fmaf(wb.y, v, a[q][5]);
+            a[q][6] = fmaf(wb.z, v, a[q][6]);
+            a[q][7] = fmaf(wb.w, v, a[q][7]);
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kUpsPos; ++q) {
+        const int i = i0 + q * ups_stride;
+        const int t = pos0 + i;
+        if (i >= L) break;
+        const bool inside = t >= 0 && t < T;
+        uint4 packed;
+        packed.x = conv_tile::pack_bf16x2(inside ? a[q][0] : 0.f,
+                                          inside ? a[q][1] : 0.f);
+        packed.y = conv_tile::pack_bf16x2(inside ? a[q][2] : 0.f,
+                                          inside ? a[q][3] : 0.f);
+        packed.z = conv_tile::pack_bf16x2(inside ? a[q][4] : 0.f,
+                                          inside ? a[q][5] : 0.f);
+        packed.w = conv_tile::pack_bf16x2(inside ? a[q][6] : 0.f,
+                                          inside ? a[q][7] : 0.f);
+        *reinterpret_cast<uint4*>(x0 + i * p.ld + co0) = packed;
+      }
+    }
+  } else {
+    // transpose the input tile to [position][channel], two channels a
+    // thread, neighbouring threads neighbouring positions
+    const __nv_bfloat16* xb = x + (size_t)row * C * T;
+    for (int idx = threadIdx.x; idx < (C / 2) * L; idx += kThreads) {
+      const int ci = idx / L * 2;
+      const int i = idx - ci / 2 * L;
+      const int t = pos0 + i;
+      float v0 = 0.f, v1 = 0.f;
+      if (t >= 0 && t < T) {
+        v0 = __bfloat162float(xb[(size_t)ci * T + t]);
+        v1 = __bfloat162float(xb[(size_t)(ci + 1) * T + t]);
+      }
+      *reinterpret_cast<uint32_t*>(x0 + i * p.ld + ci) =
+          conv_tile::pack_bf16x2(v0, v1);
+    }
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  const uint4* wf = frags;
+  for (int r = 0; r < n_res; ++r) {
+    // the rows each conv must produce shrink by the padding of the convs
+    // after it: ext = the resblock's receptive half-width still ahead
+    int ext = 0;
+    for (int m = 0; m < 2 * n_steps; ++m) {
+      const int4 cm = plan[conv + m];
+      ext += cm.w * (cm.z - 1) / 2;
+    }
+    for (int step = 0; step < n_steps; ++step) {
+      const __nv_bfloat16* src = step == 0 ? x0 : s;
+      for (int half = 0; half < 2; ++half) {
+        const int4 cc = plan[conv++];
+        const int pad = cc.w * (cc.z - 1) / 2;
+        ext -= pad;
+        const int lo = p.ylo - ext;
+        const int n = p.yn + 2 * ext;
+        const bool last = step == n_steps - 1 && half == 1;
+        // stage the conv's fragments (the last barrier ended every read
+        // of the previous conv's); this lane's biases into registers
+        if (kStageWeights<C>) {
+          for (int i = threadIdx.x; i < cc.z * kcs * kcs * 32;
+               i += kThreads)
+            wsm[i] = __ldg(wf + i);
+        }
+        float bias[NW][2];
+#pragma unroll
+        for (int ni = 0; ni < NW; ++ni) {
+          bias[ni][0] = __ldg(b + cc.y + conv_tile::acc_col(ni, 0));
+          bias[ni][1] = __ldg(b + cc.y + conv_tile::acc_col(ni, 1));
+        }
+        __syncthreads();
+        for (int item = warp; item * kItemRows < n; item += kMmaWarps<C>) {
+          const int r0 = lo + item * kItemRows;
+          float acc[1][NW][4];
+          conv_tile::zero(acc);
+          const uint4* wc = kStageWeights<C> ? wsm : wf;
+          if (half == 0)
+            conv_tile::conv_mma<1, NW, true, kStageWeights<C>>(
+                acc, src, p.ld, r0 - pad, cc.z, cc.w, kcs, wc, kcs, 0);
+          else
+            conv_tile::conv_mma<1, NW, false, kStageWeights<C>>(
+                acc, u, p.ld, r0 - pad, cc.z, cc.w, kcs, wc, kcs, 0);
+#pragma unroll
+          for (int ni = 0; ni < NW; ++ni)
+#pragma unroll
+            for (int e = 0; e < 4; e += 2) {
+              const int i = r0 + conv_tile::acc_row(0, e);
+              const int co = conv_tile::acc_col(ni, e);
+              const int t = pos0 + i;
+              const bool inside = t >= 0 && t < T;
+              float v0 = acc[0][ni][e] + bias[ni][0];
+              float v1 = acc[0][ni][e + 1] + bias[ni][1];
+              if (half == 0) {
+                // lrelu(conv1), zero outside [0, T)
+                *reinterpret_cast<uint32_t*>(u + i * p.ld + co) =
+                    conv_tile::pack_bf16x2(inside ? lrelu(v0) : 0.f,
+                                           inside ? lrelu(v1) : 0.f);
+                continue;
+              }
+              // residual add onto the state
+              const float2 prev = conv_tile::unpack_bf16x2(
+                  *reinterpret_cast<const uint32_t*>(src + i * p.ld + co));
+              v0 = inside ? prev.x + v0 : 0.f;
+              v1 = inside ? prev.y + v1 : 0.f;
+              if (!last) {
+                *reinterpret_cast<uint32_t*>(s + i * p.ld + co) =
+                    conv_tile::pack_bf16x2(v0, v1);
+                continue;
+              }
+              // the resblock's output, into the mean over resblocks
+              float* yr = y + (i - p.ylo) * p.ldy + co;
+              if (r > 0) {
+                v0 += yr[0];
+                v1 += yr[1];
+              }
+              if (r == n_res - 1) {
+                v0 /= (float)n_res;
+                v1 /= (float)n_res;
+              }
+              yr[0] = v0;
+              yr[1] = v1;
+            }
+        }
+        wf += (size_t)cc.z * kcs * kcs * 32;
+        __syncthreads();
+      }
+    }
+  }
+
+  if (has_post) {
+    const int4 cp = plan[conv];
+    const int pad = (cp.z - 1) / 2;
+    const float* wp = w + cp.x;  // [C][K][1]
+    float* outp = (float*)out_ptr + (size_t)row * T;
+    for (int i = threadIdx.x; i < tile; i += kThreads) {
+      const int t = t0 + i;
+      if (t >= T) continue;
+      float a = __ldg(b + cp.y);
+      for (int tap = 0; tap < cp.z; ++tap) {
+        const int j = i + post_pad + tap - pad;  // row of y
+        const int tt = t + tap - pad;
+        if (tt < 0 || tt >= T) continue;
+        for (int ci = 0; ci < C; ++ci)
+          a = fmaf(__ldg(wp + ci * cp.z + tap), lrelu(y[j * p.ldy + ci]), a);
+      }
+      outp[t] = tanhf(a);
+    }
+  } else {
+    __nv_bfloat16* outp = (__nv_bfloat16*)out_ptr + (size_t)row * C * T;
+    for (int idx = threadIdx.x; idx < C * tile; idx += kThreads) {
+      const int c = idx / tile;
+      const int i = idx - c * tile;
+      const int t = t0 + i;
+      if (t < T) outp[(size_t)c * T + t] = __float2bfloat16(y[i * p.ldy + c]);
+    }
+  }
+}
+
+template <int C>
+cudaError_t launch_mma(const void* x, void* out, const float* w,
+                       const float* b, const int4* plan, const void* frags,
+                       int batch, int c_in, int t_in, int T, int n_res,
+                       int n_steps, int ups_k, int ups_stride, int ups_pad,
+                       int has_post, int post_pad, int tile, int halo,
+                       int max_k, cudaStream_t stream) {
+  auto kernel = stage_mma_kernel<C>;
+  const StagePlan p(C, tile, halo, post_pad, max_k);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((T + tile - 1) / tile, batch);
+  kernel<<<grid, 32 * kMmaWarps<C>, p.smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), out, w, b, plan,
+      static_cast<const uint4*>(frags), c_in, t_in, T, n_res, n_steps, ups_k,
+      ups_stride, ups_pad, has_post, post_pad, tile, halo, max_k);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -326,12 +679,53 @@ extern "C" int hifigan_stage_launch(const void* x, void* out, const void* w,
   const float* bf = static_cast<const float*>(b);
   const int4* pl = static_cast<const int4*>(plan);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return (int)dispatch<__nv_bfloat16>(c, x, out, wf, bf, pl, batch, c_in,
-                                        t_in, t_out, n_res, n_steps, ups_k,
-                                        ups_stride, ups_pad, has_post, tile,
-                                        halo, st);
-  return (int)dispatch<float>(c, x, out, wf, bf, pl, batch, c_in, t_in,
-                              t_out, n_res, n_steps, ups_k, ups_stride,
-                              ups_pad, has_post, tile, halo, st);
+  if (is_bf16) {
+    // bf16 from 16 channels runs on tensor cores (hifigan_stage_mma_launch)
+    if (c != 8) return (int)cudaErrorInvalidValue;
+    return (int)launch<8, __nv_bfloat16>(x, out, wf, bf, pl, batch, c_in,
+                                         t_in, t_out, n_res, n_steps, ups_k,
+                                         ups_stride, ups_pad, has_post, tile,
+                                         halo, st);
+  }
+  return (int)dispatch(c, x, out, wf, bf, pl, batch, c_in, t_in, t_out,
+                       n_res, n_steps, ups_k, ups_stride, ups_pad, has_post,
+                       tile, halo, st);
+}
+
+// bf16 on tensor cores, C in {16, 32, 64}.  frags: the resblock convs'
+// MMA fragments (ops/mma.py) in launch order; w, b, plan as above (w is
+// read for the upsampler and conv_post only).  post_pad: (K - 1) / 2 of
+// conv_post (0 without it).  The tile plus 2 * post_pad is a multiple of
+// 16.  max_k: the largest K of the resblock convs.
+extern "C" int hifigan_stage_mma_launch(const void* x, void* out,
+                                        const void* w, const void* b,
+                                        const void* plan, const void* frags,
+                                        int batch, int c, int c_in, int t_in,
+                                        int t_out, int n_res, int n_steps,
+                                        int ups_k, int ups_stride,
+                                        int ups_pad, int has_post,
+                                        int post_pad, int tile, int halo,
+                                        int max_k, void* stream) {
+  const float* wf = static_cast<const float*>(w);
+  const float* bf = static_cast<const float*>(b);
+  const int4* pl = static_cast<const int4*>(plan);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tile <= 0 || post_pad < 0 || (!has_post && post_pad != 0) ||
+      (tile + 2 * post_pad) % kItemRows != 0 || max_k <= 0 ||
+      (ups_k > 0) + 2 * n_res * n_steps + has_post > kMaxConvs)
+    return (int)cudaErrorInvalidValue;
+#define STAGE_MMA_CASE(CH)                                                 \
+  case CH:                                                                 \
+    return (int)launch_mma<CH>(x, out, wf, bf, pl, frags, batch, c_in,     \
+                               t_in, t_out, n_res, n_steps, ups_k,         \
+                               ups_stride, ups_pad, has_post, post_pad,    \
+                               tile, halo, max_k, st);
+  switch (c) {
+    STAGE_MMA_CASE(16)
+    STAGE_MMA_CASE(32)
+    STAGE_MMA_CASE(64)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef STAGE_MMA_CASE
 }

@@ -30,8 +30,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from mimic3_tpu.config import ModelConfig
-
+from ...config import ModelConfig
 from . import duration as dur
 from . import encoder as enc
 from . import flow as flw

@@ -2,7 +2,8 @@
 
 Each kernel module (``ops/stage.py``, ``ops/resblock.py``) compiles its
 own ``.cu`` file at first use into a git-ignored build directory, keyed
-by a hash of the source, and binds it with ``ctypes``.  The library has
+by a hash of the source and of every header it includes from ``csrc/``,
+and binds it with ``ctypes``.  The library has
 a plain C interface, so no PyTorch header is compiled.  Next to each
 library a ``.log`` keeps what ``ptxas -v`` printed (registers, shared
 memory and spills per kernel).
@@ -12,8 +13,10 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import typing
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
@@ -31,10 +34,32 @@ def find_nvcc() -> str:
     return nvcc
 
 
+_INCLUDE_RE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def source_files(source: Path) -> typing.List[Path]:
+    """``source`` and the headers it includes with ``#include "..."``,
+    transitively, resolved beside the file that includes them."""
+    files: typing.List[Path] = []
+    todo = [source.resolve()]
+    while todo:
+        path = todo.pop()
+        if path in files:
+            continue
+        files.append(path)
+        for name in _INCLUDE_RE.findall(path.read_bytes()):
+            todo.append((path.parent / name.decode()).resolve())
+    return files
+
+
 def library_path(source: Path, build_dir: Path) -> Path:
-    """``<build_dir>/lib<stem>_<hash of the source>.so``."""
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    return build_dir / f"lib{source.stem}_{digest}.so"
+    """``<build_dir>/lib<stem>_<hash>.so``, the hash taken over the source
+    and every header it includes, so a changed header is never served
+    from a library built before the change."""
+    digest = hashlib.sha256()
+    for path in source_files(source):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return build_dir / f"lib{source.stem}_{digest.hexdigest()[:16]}.so"
 
 
 def compile_library(source: Path, out: Path) -> None:

@@ -12,7 +12,9 @@ layout and conv weights ``[Cout, Cin, K]``.  As on the TPU, the weights
 are rounded to x's dtype, the sums are float32 and the output has x's
 dtype.  The TPU kernel's tiling limits (8-row halo rounding, T a multiple
 of the tile) do not apply: any ``T >= 1`` and any C that is a multiple of
-8 up to 256 are taken.
+8 up to 256 are taken.  bf16 with ``C >= 16`` runs on tensor cores
+(weights packed as MMA fragments by :mod:`.mma`); float32, and bf16 below
+the MMA depth of 16 channels, run on FFMA.
 
 No synthesis path calls this kernel, as in the JAX package: its entry
 point is ``mimic3_tpu_torch/scripts/profile_resblock.py``.  The source is
@@ -26,13 +28,14 @@ or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 import typing
 from dataclasses import dataclass
 
 import torch
 
-from . import build
+from . import build, mma
 
 SOURCE = build.PACKAGE_DIR / "csrc" / "resblock.cu"
 BUILD_DIR = build.BUILD_DIR
@@ -44,6 +47,12 @@ _MAX_SMEM_BYTES = 232448
 # block reserves)
 _HALF_SMEM_BYTES = 228 * 1024 // 2 - 1024
 _TILES = (256, 128, 64, 32, 16, 8)  # time tiles tried, largest first
+_SMS = 132  # streaming multiprocessors of an H100 SXM
+# tensor-core path: rows of the first conv per block, tried in order, and
+# output-channel groups per time tile
+_MMA_ROWS = (256, 224, 192, 160, 128, 96, 64, 32)
+_MMA_GROUPS = (1, 2, 4, 8)
+_MMA_WARPS = 8
 
 # kernel launches since the last reset (read by chip_smoke.py)
 launches = 0
@@ -74,14 +83,24 @@ def build_library() -> ctypes.CDLL:
             + [ctypes.c_int] * 7  # batch, C, T, K, dilation, tile, is_bf16
             + [ctypes.c_void_p]  # stream
         )
+        fn = lib.resblock_subblock_mma_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_void_p] * 6  # x, out, w1, b1, w2, b2
+            + [ctypes.c_int] * 7  # batch, C, T, K, dilation, rows, groups
+            + [ctypes.c_void_p]  # stream
+        )
         _LIB = lib
         return lib
 
 
 @dataclass(frozen=True)
 class SubblockWeights:
-    """One step's two convs laid out for the kernel: weights ``[Cin, K,
-    Cout]`` and biases ``[C]``, rounded to ``dtype`` and held as float32."""
+    """One step's two convs laid out for the kernel.  FFMA path: weights
+    ``[Cin, K, Cout]`` and biases ``[C]``, rounded to ``dtype`` and held
+    as float32.  Tensor-core path (``mma``): weights as int32 MMA
+    fragments (:func:`.mma.pack_conv_fragments`) and biases rounded to
+    bf16, held as float32 and padded to a multiple of 16."""
 
     w1: torch.Tensor
     b1: torch.Tensor
@@ -90,6 +109,7 @@ class SubblockWeights:
     channels: int
     kernel_size: int
     dtype: torch.dtype
+    mma: bool = False
 
 
 def pack_subblock_weights(
@@ -100,12 +120,22 @@ def pack_subblock_weights(
     dtype: torch.dtype,
     device: typing.Optional[torch.device] = None,
 ) -> SubblockWeights:
-    """Pack ``[Cout, Cin, K]`` conv weights (``None`` bias = zeros)."""
+    """Pack ``[Cout, Cin, K]`` conv weights (``None`` bias = zeros) for
+    the path that x's ``dtype`` takes: MMA fragments for bf16 with
+    ``C >= 16``, else the FFMA layout."""
     c, c_in, k = w1.shape
     if c_in != c or tuple(w2.shape) != (c, c, k):
         raise ValueError(
             f"weights {tuple(w1.shape)} / {tuple(w2.shape)} are not two "
             "square convs of one kernel size"
+        )
+    if uses_mma(c, dtype):
+        return SubblockWeights(
+            w1=mma.pack_conv_fragments(w1.to(device)),
+            b1=mma.pad_bias(b1, c, device),
+            w2=mma.pack_conv_fragments(w2.to(device)),
+            b2=mma.pad_bias(b2, c, device),
+            channels=c, kernel_size=k, dtype=dtype, mma=True,
         )
 
     def weight(w):
@@ -120,6 +150,77 @@ def pack_subblock_weights(
         w1=weight(w1), b1=bias(b1), w2=weight(w2), b2=bias(b2),
         channels=c, kernel_size=k, dtype=dtype,
     )
+
+
+def uses_mma(channels: int, dtype: torch.dtype) -> bool:
+    """bf16 with at least the MMA depth of channels runs on tensor cores."""
+    return dtype == torch.bfloat16 and channels >= 16
+
+
+def mma_smem_bytes(
+    channels: int, kernel_size: int, dilation: int, rows: int, groups: int
+) -> int:
+    """Shared memory of one tensor-core block (``MmaPlan`` in
+    ``csrc/resblock.cu``): the intermediate h, then lrelu(x) or the
+    second conv's f32 output tile, whichever is larger."""
+    cp = mma.padded(channels)
+    ld = cp + 8
+    h1 = dilation * (kernel_size - 1) // 2
+    h2 = (kernel_size - 1) // 2
+    m2 = -(-(rows - 2 * h2) // 32) * 32
+    a_bytes = (rows + 2 * h1) * ld * 2
+    o_bytes = cp // groups * (m2 + 4) * 4
+    return (m2 + 2 * h2) * ld * 2 + max(a_bytes, o_bytes)
+
+
+@functools.lru_cache(maxsize=256)
+def pick_mma_config(
+    channels: int, kernel_size: int, dilation: int, t: int, batch: int
+) -> typing.Tuple[int, int]:
+    """(rows of the first conv per block, output-channel groups) for the
+    tensor-core path.  Each candidate is costed as waves of blocks over
+    the SMs times a block's rounds of warp items (32 rows x 8*NW output
+    channels x C_in x K MACs each), the first conv over all channels and
+    the second over the block's group.  Blocks that let two share an SM
+    (16 warps to hide MMA latency) come first; ties go to less shared
+    memory."""
+    cp = mma.padded(channels)
+    h2 = (kernel_size - 1) // 2
+    best = None
+    for rows in _MMA_ROWS:
+        tile = rows - 2 * h2
+        if tile < 1 or (tile > 2 * t and rows != _MMA_ROWS[-1]):
+            continue
+        m2 = -(-tile // 32) * 32
+        for groups in _MMA_GROUPS:
+            cg = cp // groups
+            if cp % groups or cg % 16:
+                continue
+            smem = mma_smem_bytes(
+                channels, kernel_size, dilation, rows, groups
+            )
+            if smem > _MAX_SMEM_BYTES:
+                continue
+            nw = 4 if cg % 32 == 0 else 2
+            items1 = rows // 32 * (cp // (8 * nw))
+            items2 = m2 // 32 * (cg // (8 * nw))
+            per_block = (
+                -(-items1 // _MMA_WARPS) + -(-items2 // _MMA_WARPS)
+            ) * nw
+            blocks = -(-t // tile) * batch * groups
+            cost = (
+                smem > _HALF_SMEM_BYTES,
+                -(-blocks // _SMS) * per_block,
+                smem,
+            )
+            if best is None or cost < best[0]:
+                best = (cost, rows, groups)
+    if best is None:
+        raise ValueError(
+            f"no tensor-core block fits C={channels}, K={kernel_size}, "
+            f"d={dilation} in shared memory"
+        )
+    return best[1], best[2]
 
 
 def pick_tile(channels: int, kernel_size: int, dilation: int, t: int) -> int:
@@ -208,23 +309,32 @@ def fused_resblock_subblock(
         weights = pack_subblock_weights(w1, b1, w2, b2, x.dtype, x.device)
     if (weights.channels, weights.kernel_size, weights.dtype) != (
         c, kernel_size, x.dtype,
-    ):
+    ) or weights.mma != uses_mma(c, x.dtype):
         raise ValueError("packed weights do not match x or kernel_size")
     for p in (weights.w1, weights.b1, weights.w2, weights.b2):
         if p.device != x.device:
             raise ValueError("packed weights are on another device")
 
     out = torch.empty_like(x)
-    tile = pick_tile(c, kernel_size, dilation, t)
     lib = build_library()
-    err = lib.resblock_subblock_launch(
+    pointers = (
         x.data_ptr(), out.data_ptr(),
         weights.w1.data_ptr(), weights.b1.data_ptr(),
         weights.w2.data_ptr(), weights.b2.data_ptr(),
-        batch, c, t, kernel_size, dilation, tile,
-        int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream,
     )
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if weights.mma:
+        rows, groups = pick_mma_config(c, kernel_size, dilation, t, batch)
+        err = lib.resblock_subblock_mma_launch(
+            *pointers, batch, c, t, kernel_size, dilation, rows, groups,
+            stream,
+        )
+    else:
+        tile = pick_tile(c, kernel_size, dilation, t)
+        err = lib.resblock_subblock_launch(
+            *pointers, batch, c, t, kernel_size, dilation, tile,
+            int(x.dtype == torch.bfloat16), stream,
+        )
     if err != 0:
         raise RuntimeError(
             f"resblock_subblock kernel launch failed: cuda error {err}"

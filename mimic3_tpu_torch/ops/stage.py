@@ -10,8 +10,12 @@ float32 waveform is written.
 
 Activations use the port's ``[B, C, T]`` layout.  The kernel source is
 ``mimic3_tpu_torch/csrc/stage.cu``; it is compiled with ``nvcc`` at first
-use into ``build/mimic3_tpu_torch/`` (keyed by a hash of the source) and
-bound through ``ctypes``.  Nothing is built when this module is imported.
+use into ``build/mimic3_tpu_torch/`` (keyed by a hash of the source and
+its headers) and bound through ``ctypes``.  Nothing is built when this module is imported.
+
+bf16 at ``C >= 16`` runs every resblock conv on tensor cores (the tile of
+``csrc/conv_tile.cuh``, weights packed as MMA fragments by :mod:`.mma`);
+float32, and bf16 at ``C = 8`` (under the MMA depth), run on FFMA.
 
 For a CPU tensor :func:`hifigan_stage_fused` runs
 :func:`hifigan_stage_plain`; for a CUDA tensor it launches the kernel or
@@ -21,6 +25,8 @@ raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import threading
 import typing
 from dataclasses import dataclass
@@ -35,16 +41,22 @@ from ..models.vits.layers import (
     conv_transpose1d,
     leaky_relu,
 )
-from . import build
+from . import build, mma
 
 SOURCE = build.PACKAGE_DIR / "csrc" / "stage.cu"
 BUILD_DIR = build.BUILD_DIR
 
 # channel counts the kernel is instantiated for (csrc/stage.cu)
 SUPPORTED_CHANNELS = (8, 16, 32, 64)
+# those the bf16 path runs on tensor cores (the MMA depth is 16)
+MMA_CHANNELS = (16, 32, 64)
 # dynamic shared memory one block may use on Hopper
 _MAX_SMEM_BYTES = 232448
 _TILES = (256, 128, 64, 32)  # time tiles tried, largest first
+_SMS = 132  # streaming multiprocessors of an H100 SXM
+# tensor-core path: output rows per block (tile + 2 * conv_post padding),
+# multiples of the 16-row warp item, tried largest first
+_MMA_ROWS = tuple(range(512, 47, -16))
 
 # kernel launches since the last reset (read by chip_smoke.py)
 launches = 0
@@ -72,16 +84,27 @@ def build_library() -> ctypes.CDLL:
             return _LIB
         out = library_path()
         build.compile_library(SOURCE, out)
-        lib = ctypes.CDLL(str(out))
-        fn = lib.hifigan_stage_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = (
-            [ctypes.c_void_p] * 5  # x, out, w, b, plan
-            + [ctypes.c_int] * 14
-            + [ctypes.c_void_p]  # stream
-        )
-        _LIB = lib
-        return lib
+        _LIB = bind(ctypes.CDLL(str(out)))
+        return _LIB
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the entry points' C signatures on a loaded library."""
+    fn = lib.hifigan_stage_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p] * 5  # x, out, w, b, plan
+        + [ctypes.c_int] * 14
+        + [ctypes.c_void_p]  # stream
+    )
+    fn = lib.hifigan_stage_mma_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p] * 6  # x, out, w, b, plan, fragments
+        + [ctypes.c_int] * 15
+        + [ctypes.c_void_p]  # stream
+    )
+    return lib
 
 
 # ---------------------------------------------------------------------------
@@ -96,12 +119,18 @@ class StageWeights:
     ``w``: float32, every conv as ``[Cin, K, Cout]`` back to back in
     launch order (ups, then per resblock per step conv1/conv2, then
     post); ``b``: float32 biases; ``plan``: int32 ``[n_convs, 4]`` rows
-    of (weight offset, bias offset, K, dilation).
+    of (weight offset, bias offset, K, dilation).  ``fragments``: the
+    resblock convs again as bf16 MMA fragments (:mod:`.mma`), back to
+    back in launch order, for the tensor-core path (``None`` below 16
+    channels); ``convs``: their (K, dilation) in that order.
     """
 
     w: torch.Tensor
     b: torch.Tensor
     plan: torch.Tensor
+    fragments: typing.Optional[torch.Tensor]
+    convs: typing.Tuple[typing.Tuple[int, int], ...]
+    post_kernel: int
     channels: int
     in_channels: int
     n_res: int
@@ -141,6 +170,8 @@ def pack_stage_weights(
     ws: typing.List[torch.Tensor] = []
     bs: typing.List[torch.Tensor] = []
     plan: typing.List[typing.Tuple[int, int, int, int]] = []
+    frags: typing.List[torch.Tensor] = []
+    convs: typing.List[typing.Tuple[int, int]] = []
     w_off = b_off = 0
 
     def add(weight_cik: torch.Tensor, bias, c_out: int, dil: int) -> None:
@@ -181,6 +212,9 @@ def pack_stage_weights(
                         f"!= {(channels, channels, k)}"
                     )
                 add(p["weight"].permute(1, 2, 0), p.get("bias"), channels, dil)
+                convs.append((k, dil))
+                if channels in MMA_CHANNELS:
+                    frags.append(mma.pack_conv_fragments(p["weight"]).cpu())
     post_kernel = 0
     if post_params is not None:
         pw = post_params["weight"]  # [1, C, K]
@@ -193,6 +227,12 @@ def pack_stage_weights(
         w=torch.cat(ws).to(device),
         b=torch.cat(bs).to(device),
         plan=torch.tensor(plan, dtype=torch.int32).to(device),
+        fragments=(
+            torch.cat([f.reshape(-1) for f in frags]).to(device)
+            if frags else None
+        ),
+        convs=tuple(convs),
+        post_kernel=post_kernel,
         channels=channels,
         in_channels=in_channels,
         n_res=len(kernel_sizes),
@@ -203,6 +243,11 @@ def pack_stage_weights(
         ups_padding=ups_padding if ups_kernel else 0,
         has_post=post_params is not None,
     )
+
+
+def uses_mma(channels: int, dtype: torch.dtype) -> bool:
+    """bf16 stages of at least the MMA depth run on tensor cores."""
+    return dtype == torch.bfloat16 and channels in MMA_CHANNELS
 
 
 def _pick_tile(weights: StageWeights) -> int:
@@ -221,6 +266,89 @@ def _pick_tile(weights: StageWeights) -> int:
     raise ValueError(
         f"no time tile fits C={c}, halo={weights.halo} in shared memory"
     )
+
+
+def mma_warps(channels: int) -> int:
+    """Warps of a tensor-core block (``kMmaWarps`` in ``csrc/stage.cu``)."""
+    return 16 if channels <= 32 else 12
+
+
+def mma_smem_bytes(weights: StageWeights, rows: int) -> int:
+    """Shared memory of one tensor-core block for ``rows`` output rows
+    (``StagePlan`` in ``csrc/stage.cu``): three bf16 buffers of the haloed
+    tile plus 16 rows of slack, the f32 sum over resblocks, the launch
+    plan, and at C <= 32 the largest conv's MMA fragments."""
+    c = weights.channels
+    post_pad = (weights.post_kernel - 1) // 2 if weights.has_post else 0
+    buffer_rows = rows - 2 * post_pad + 2 * weights.halo + 16
+    acts = 3 * buffer_rows * (c + 8) * 2 + rows * (c + 1) * 4
+    plan = 64 * 16
+    if c > 32:  # the fragments are read from device memory
+        return -(-acts // 16) * 16 + plan
+    max_k = max(k for k, _ in weights.convs)
+    return -(-acts // 16) * 16 + plan + max_k * (c // 16) ** 2 * 32 * 16
+
+
+def _mma_rounds(weights: StageWeights, rows: int) -> int:
+    """Warp rounds of one block's convs, weighted by K: each conv computes
+    its needed rows (the output rows plus the receptive half-width of the
+    resblock's convs after it) in 16-row items over the block's warps."""
+    total = 0
+    per_res = len(weights.convs) // weights.n_res
+    for r in range(weights.n_res):
+        convs = weights.convs[r * per_res:(r + 1) * per_res]
+        ext = sum(d * (k - 1) // 2 for k, d in convs)
+        for k, d in convs:
+            ext -= d * (k - 1) // 2
+            items = -(-(rows + 2 * ext) // 16)
+            total += k * -(-items // mma_warps(weights.channels))
+    return total
+
+
+def _pick_mma_rows(weights: StageWeights, t_out: int, batch: int) -> int:
+    """Output rows per block (tile + 2 * conv_post padding) for the
+    tensor-core path: the least modelled time, waves of blocks over the
+    SMs times a block's warp rounds; ties go to the longer tile.  Cached
+    on the pack's shape (this runs on every launch)."""
+    return _pick_mma_rows_cached(
+        dataclasses.replace(weights, w=None, b=None, plan=None,
+                            fragments=None),
+        t_out, batch,
+    )
+
+
+@functools.lru_cache(maxsize=256)
+def _pick_mma_rows_cached(
+    weights: StageWeights, t_out: int, batch: int
+) -> int:
+    post_pad = (weights.post_kernel - 1) // 2 if weights.has_post else 0
+    best = None
+    for rows in _MMA_ROWS:
+        tile = rows - 2 * post_pad
+        if tile < 1 or mma_smem_bytes(weights, rows) > _MAX_SMEM_BYTES:
+            continue
+        if weights.ups_kernel:
+            # the upsampler stages lrelu(x_in) as f32 over the state,
+            # conv1 and sum buffers
+            length = tile + 2 * weights.halo
+            lin = (length + weights.ups_kernel - 2) // weights.ups_stride + 2
+            room = mma_smem_bytes(weights, rows) - (
+                length + 16
+            ) * (weights.channels + 8) * 2
+            if weights.in_channels * lin * 4 > room:
+                continue
+        blocks = -(-t_out // tile) * batch
+        cost = -(-blocks // _SMS) * _mma_rounds(weights, rows)
+        if best is None or cost < best[0]:
+            best = (cost, rows)
+        if tile >= t_out:
+            break  # longer tiles only add masked rows
+    if best is None:
+        raise ValueError(
+            f"no tensor-core tile fits C={weights.channels}, "
+            f"halo={weights.halo} in shared memory"
+        )
+    return best[1]
 
 
 # ---------------------------------------------------------------------------
@@ -339,18 +467,35 @@ def hifigan_stage_fused(
     else:
         out = torch.empty(batch, c, t_out, device=x.device, dtype=x.dtype)
 
-    tile = _pick_tile(weights)
     lib = build_library()
-    err = lib.hifigan_stage_launch(
-        x.data_ptr(), out.data_ptr(),
-        weights.w.data_ptr(), weights.b.data_ptr(), weights.plan.data_ptr(),
-        batch, c, weights.in_channels, t_in, t_out,
-        weights.n_res, weights.n_steps,
-        weights.ups_kernel, weights.ups_stride, weights.ups_padding,
-        int(weights.has_post), tile, weights.halo,
-        int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if uses_mma(c, x.dtype):
+        if weights.fragments is None or weights.fragments.device != x.device:
+            raise ValueError("stage weights carry no MMA fragments here")
+        post_pad = (weights.post_kernel - 1) // 2 if weights.has_post else 0
+        rows = _pick_mma_rows(weights, t_out, batch)
+        err = lib.hifigan_stage_mma_launch(
+            x.data_ptr(), out.data_ptr(),
+            weights.w.data_ptr(), weights.b.data_ptr(),
+            weights.plan.data_ptr(), weights.fragments.data_ptr(),
+            batch, c, weights.in_channels, t_in, t_out,
+            weights.n_res, weights.n_steps,
+            weights.ups_kernel, weights.ups_stride, weights.ups_padding,
+            int(weights.has_post), post_pad, rows - 2 * post_pad,
+            weights.halo, max(k for k, _ in weights.convs), stream,
+        )
+    else:
+        tile = _pick_tile(weights)
+        err = lib.hifigan_stage_launch(
+            x.data_ptr(), out.data_ptr(),
+            weights.w.data_ptr(), weights.b.data_ptr(),
+            weights.plan.data_ptr(),
+            batch, c, weights.in_channels, t_in, t_out,
+            weights.n_res, weights.n_steps,
+            weights.ups_kernel, weights.ups_stride, weights.ups_padding,
+            int(weights.has_post), tile, weights.halo,
+            int(x.dtype == torch.bfloat16), stream,
+        )
     if err != 0:
         raise RuntimeError(f"hifigan_stage kernel launch failed: cuda error {err}")
     with _LAUNCHES_LOCK:  # several request and driver threads launch

@@ -10,18 +10,63 @@ Weight-norm pairs (``weight_g`` / ``weight_v``, as the synthetic test voice
 stores them) are folded once here with the JAX formula
 ``g * v / ||v||``, the norm over axes (0, 1) of ``[K, Cin, Cout]`` — i.e.
 per output channel for convs *and* transposed convs.
+
+The npz helpers (``flatten_pytree``, ``unflatten_pytree``,
+``save_pytree_npz``, ``load_pytree_npz``) and ``_TRANSPOSED_RE`` are port
+copies of those in ``mimic3_tpu/runtime/convert.py``.
 """
 
 from __future__ import annotations
 
+import re
 import typing
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from mimic3_tpu.runtime.convert import _TRANSPOSED_RE
-
 Pytree = typing.Dict[str, typing.Any]
+
+# torch module paths whose 3-D "weight"/"weight_v" is a ConvTranspose1d
+_TRANSPOSED_RE = re.compile(r"(^|\.)(ups)\.\d+($|\.)")
+
+
+def _assign(tree: Pytree, path: typing.Sequence[str], value: np.ndarray):
+    node = tree
+    for part in path[:-1]:
+        node = node.setdefault(part, {})
+    node[path[-1]] = value
+
+
+def flatten_pytree(
+    tree: Pytree, prefix: str = ""
+) -> typing.Dict[str, np.ndarray]:
+    flat: typing.Dict[str, np.ndarray] = {}
+    for key, value in tree.items():
+        path = f"{prefix}.{key}" if prefix else key
+        if isinstance(value, dict):
+            flat.update(flatten_pytree(value, path))
+        else:
+            flat[path] = np.asarray(value)
+    return flat
+
+
+def unflatten_pytree(
+    flat: typing.Mapping[str, np.ndarray],
+) -> Pytree:
+    tree: Pytree = {}
+    for name, value in flat.items():
+        _assign(tree, name.split("."), np.asarray(value))
+    return tree
+
+
+def save_pytree_npz(path: typing.Union[str, Path], tree: Pytree) -> None:
+    np.savez(path, **flatten_pytree(tree))
+
+
+def load_pytree_npz(path: typing.Union[str, Path]) -> Pytree:
+    with np.load(path) as data:
+        return unflatten_pytree({k: data[k] for k in data.files})
 
 
 def fold_weight_norm(weight_g: np.ndarray, weight_v: np.ndarray) -> np.ndarray:

@@ -14,10 +14,12 @@ output.  Streaming runs one fused pass (encoder once, durations, first
 window) and then decodes overlapped windows from the kept encoder
 statistics; the frame-indexed prior noise makes the windows seam-exact.
 
-Every device call runs inside the reference's host-side
-``_device_call`` tracker, so ``wait_device_idle`` (the server's
-shutdown) sees the port's work, with autograd off and float32
-convolutions in float32.
+Every device call runs inside the host-side ``_device_call`` tracker, so
+``wait_device_idle`` (the server's shutdown) sees it, with autograd off
+and float32 convolutions in float32.  The tracker, the kill-safe SIGTERM,
+``SessionStats``, ``hit_key``, ``expand_profile_batches`` and
+``pick_bucket`` are port copies of those in
+``mimic3_tpu/runtime/session.py``.
 
 Not ported yet: speculative decode, CUDA graphs per warmed signature, and
 multi-device serving (``dp`` is always 1).
@@ -25,30 +27,338 @@ multi-device serving (``dp`` is always 1).
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import logging
 import queue
 import threading
 import time
 import typing
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from mimic3_tpu.config import TrainingConfig
-from mimic3_tpu.runtime.session import (
-    SessionStats,
-    _device_call,
-    expand_profile_batches,
-    graceful_shutdown_requested,
-    hit_key,
-    pick_bucket,
-)
-
+from ..config import TrainingConfig
 from ..models.vits.model import VitsModel, mix_seed
 from .convert import to_torch_params
 
 _LOGGER = logging.getLogger(__name__)
+
+
+# ---------------------------------------------------------------------------
+# Device-call tracking and kill-safe shutdown
+# ---------------------------------------------------------------------------
+
+_DEVICE_CALLS = 0
+_DEVICE_CALLS_COND = threading.Condition()
+_SHUTDOWN_EVENT = threading.Event()
+
+
+class _device_call:
+    """Marks one device dispatch in flight."""
+
+    def __enter__(self) -> "_device_call":
+        global _DEVICE_CALLS
+        with _DEVICE_CALLS_COND:
+            _DEVICE_CALLS += 1
+        return self
+
+    def __exit__(self, *exc) -> None:
+        global _DEVICE_CALLS
+        with _DEVICE_CALLS_COND:
+            _DEVICE_CALLS -= 1
+            if _DEVICE_CALLS == 0:
+                _DEVICE_CALLS_COND.notify_all()
+
+
+def device_calls_in_flight() -> int:
+    """Number of device calls currently running."""
+    with _DEVICE_CALLS_COND:
+        return _DEVICE_CALLS
+
+
+def wait_device_idle(timeout: typing.Optional[float] = None) -> bool:
+    """Block until no device call is in flight; True if idle reached."""
+    deadline = None if timeout is None else time.monotonic() + timeout
+    with _DEVICE_CALLS_COND:
+        while _DEVICE_CALLS > 0:
+            remaining = (
+                None if deadline is None else deadline - time.monotonic()
+            )
+            if remaining is not None and remaining <= 0:
+                return False
+            _DEVICE_CALLS_COND.wait(timeout=remaining)
+    return True
+
+
+def request_graceful_shutdown() -> None:
+    """Ask long device loops (warmup grids) to stop at the next safe
+    point, between signatures."""
+    _SHUTDOWN_EVENT.set()
+
+
+def graceful_shutdown_requested() -> bool:
+    return _SHUTDOWN_EVENT.is_set()
+
+
+def reset_graceful_shutdown() -> None:
+    """Clear the shutdown request (tests / long-lived embedders)."""
+    _SHUTDOWN_EVENT.clear()
+
+
+def install_kill_safe_sigterm() -> None:
+    """SIGTERM defers while a device call is in flight.
+
+    First SIGTERM: cancel warmup grids at the next signature boundary,
+    wait for in-flight calls to drain, then raise KeyboardInterrupt in
+    the main thread.  Second SIGTERM: force immediate KeyboardInterrupt
+    (operator escape hatch).  Call from the main thread of any
+    device-owning process (server, bench).
+    """
+    import _thread
+    import signal
+
+    # Delivery acknowledgment for the drain thread below.  CPython race:
+    # a signal tripped in the window around
+    # entry into a blocking call (time.sleep, lock wait) is NOT
+    # processed until that call returns on its own — blocking calls
+    # only re-check signals on EINTR, and a signal whose C-level
+    # handler already ran won't EINTR the syscall again.  One
+    # pthread_kill is therefore not enough; the drain thread retries
+    # until the Python-level handler actually ran.  Retries are safe:
+    # pending deliveries coalesce at the CPython trip-flag level, and
+    # we stop as soon as the handler acknowledges.
+    sigint_seen = threading.Event()
+
+    def _sigint(signum, frame):
+        sigint_seen.set()
+        raise KeyboardInterrupt  # same semantics as the default handler
+
+    def _sigterm(signum, frame):
+        if graceful_shutdown_requested():
+            raise KeyboardInterrupt  # second SIGTERM: force
+        request_graceful_shutdown()  # cancel any warmup grid
+        if device_calls_in_flight() == 0:
+            raise KeyboardInterrupt
+        _LOGGER.warning(
+            "SIGTERM deferred: %d device call(s) in "
+            "flight; exiting when they drain (SIGTERM again to force)",
+            device_calls_in_flight(),
+        )
+
+        def _exit_when_idle():
+            wait_device_idle(timeout=7200)
+            main = threading.main_thread()
+            sigint_seen.clear()
+            for _ in range(600):  # bounded: ~10 min of retries
+                try:
+                    # pthread_kill targets the main thread directly so
+                    # a blocked syscall gets EINTR; interrupt_main()
+                    # alone only fires at the next bytecode boundary.
+                    signal.pthread_kill(main.ident, signal.SIGINT)
+                except (ProcessLookupError, ValueError, RuntimeError):
+                    _thread.interrupt_main()
+                    return
+                if sigint_seen.wait(timeout=1.0) or not main.is_alive():
+                    return
+            _thread.interrupt_main()  # last resort
+
+        threading.Thread(target=_exit_when_idle, daemon=True).start()
+
+    signal.signal(signal.SIGTERM, _sigterm)
+    signal.signal(signal.SIGINT, _sigint)
+
+
+# ---------------------------------------------------------------------------
+# Statistics, signatures and buckets
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class SessionStats:
+    """Rolling synthesis statistics (RTF = infer_sec / audio_sec).
+
+    Recorded from scheduler and direct-caller threads and read by
+    /api/stats; all mutation and history reads go through ``_lock``.
+    """
+
+    utterances: int = 0
+    infer_sec: float = 0.0
+    audio_sec: float = 0.0
+    compile_count: int = 0
+    last_rtf: float = 0.0
+    rtf_history: typing.List[float] = field(default_factory=list)
+    latency_history: typing.List[float] = field(default_factory=list)
+    executable_hits: typing.Dict[str, int] = field(default_factory=dict)
+    bucket_fallbacks: typing.Dict[str, int] = field(default_factory=dict)
+    _lock: threading.Lock = field(
+        default_factory=threading.Lock, repr=False, compare=False
+    )
+
+    def record_hit(self, key: str) -> None:
+        """Count a dispatch of one signature.
+
+        Keys come from :func:`hit_key`.  /api/stats exposes the table so
+        a deployment can save its real traffic profile and restart with
+        ``--warmup-profile``, warming only the executables its requests
+        actually dispatch instead of the full bucket grid.
+        """
+        with self._lock:
+            self.executable_hits[key] = (
+                self.executable_hits.get(key, 0) + 1
+            )
+
+    def hits_snapshot(self) -> typing.Dict[str, int]:
+        """Copy of ``executable_hits`` taken under ``_lock`` — request
+        threads mutate the dict through :meth:`record_hit`, and a
+        resize during an unlocked ``dict()`` copy raises RuntimeError."""
+        with self._lock:
+            return dict(self.executable_hits)
+
+    def record_bucket_fallback(self, natural: str, used: str) -> int:
+        """Count one warmed-bucket fallback (``natural`` signature was
+        not warmed; the request dispatched ``used`` instead).  Returns
+        the new count for this mapping so the caller can log first
+        occurrences only."""
+        key = f"{natural}->{used}"
+        with self._lock:
+            n = self.bucket_fallbacks.get(key, 0) + 1
+            self.bucket_fallbacks[key] = n
+            return n
+
+    def fallbacks_snapshot(self) -> typing.Dict[str, int]:
+        with self._lock:
+            return dict(self.bucket_fallbacks)
+
+    def record(self, infer_sec: float, audio_sec: float) -> None:
+        with self._lock:
+            self.utterances += 1
+            self.infer_sec += infer_sec
+            self.audio_sec += audio_sec
+            self.last_rtf = (
+                infer_sec / audio_sec if audio_sec > 0 else 0.0
+            )
+            self.rtf_history.append(self.last_rtf)
+            self.latency_history.append(infer_sec)
+            if len(self.rtf_history) > 1000:
+                del self.rtf_history[:-1000]
+            if len(self.latency_history) > 1000:
+                del self.latency_history[:-1000]
+
+    @property
+    def mean_rtf(self) -> float:
+        return self.infer_sec / self.audio_sec if self.audio_sec else 0.0
+
+    def latency_percentile(self, pct: float) -> float:
+        """Synthesis-call latency percentile over the recent window."""
+        with self._lock:
+            ordered = sorted(self.latency_history)
+        if not ordered:
+            return 0.0
+        idx = min(
+            len(ordered) - 1, int(pct / 100.0 * len(ordered))
+        )
+        return ordered[idx]
+
+
+def hit_key(
+    kind: str, b: int, t: int, f: typing.Optional[int] = None
+) -> str:
+    """Stable name of one signature: (kind, batch bucket, text
+    bucket[, frame/window bucket]), the static shapes of one device
+    call.  Used by SessionStats.record_hit and warmup profiles.
+    """
+    key = f"{kind}:b{int(b)}:t{int(t)}"
+    return key if f is None else f"{key}:f{int(f)}"
+
+
+def expand_profile_batches(
+    profile: typing.Collection[str],
+    batch_buckets: typing.Sequence[int],
+    frame_buckets: typing.Optional[typing.Sequence[int]] = None,
+) -> typing.FrozenSet[str]:
+    """Close a captured traffic profile over the batch-bucket ladder.
+
+    A raw /api/stats ``executable_hits`` capture records only the batch
+    buckets that request ARRIVAL TIMING happened to realize (the
+    scheduler packs whatever is queued); a later run with the same
+    traffic content WILL hit other buckets.  Text buckets stay exactly
+    as observed — they are functions of the traffic's content.
+
+    Frame buckets are NOT purely content-derived for batched decode:
+    the decode executable's frame bucket is ``bucket(max frames in
+    batch)``, the stochastic duration predictor jitters per-row totals,
+    and the batch max is monotone in batch size — so the same traffic
+    near a bucket boundary crosses into the NEXT frame bucket when the
+    scheduler packs a bigger batch (observed live: phase-0 saw
+    ``decode:*:f128``, the measurement run dispatched
+    ``decode:b8:*:f256`` and paid a hot-path compile).  Each f-keyed
+    signature is therefore also closed over the next-larger frame
+    bucket when ``frame_buckets`` is given.
+
+    ``VitsSession.warmup`` applies this closure itself, so raw
+    /api/stats captures are safe to pass to ``--warmup-profile``.
+    """
+    fb = sorted(int(f) for f in frame_buckets) if frame_buckets else []
+
+    def next_f(f: int) -> typing.Optional[int]:
+        for cand in fb:
+            if cand > f:
+                return cand
+        return None
+
+    keys: typing.Set[str] = set()
+    for key in profile:
+        parts = key.split(":")  # kind : bN : tN [: fN]
+        if (
+            len(parts) < 3
+            or not parts[1][:1] == "b"
+            or not parts[1][1:].isdigit()
+            or not parts[2][:1] == "t"
+            or not parts[2][1:].isdigit()
+            or (len(parts) > 3 and not parts[3][1:].isdigit())
+        ):
+            raise ValueError(
+                f"Malformed warmup-profile signature {key!r} — expected "
+                "'kind:bN:tN[:fN]' hit keys as recorded in /api/stats "
+                "executable_hits"
+            )
+        frames = (
+            [parts[3]] if len(parts) > 3 else [None]
+        )
+        if len(parts) > 3:
+            up = next_f(int(parts[3][1:]))
+            if up is not None:
+                frames.append(f"f{up}")
+        for b in batch_buckets:
+            parts[1] = f"b{int(b)}"
+            for f_part in frames:
+                if f_part is not None:
+                    parts[3] = f_part
+                keys.add(":".join(parts))
+    return frozenset(keys)
+
+
+def pick_bucket(
+    n: int, buckets: typing.Sequence[int], grow: bool = False
+) -> int:
+    """Smallest bucket >= n.
+
+    By default inputs past the largest bucket are CLAMPED to it (the
+    caller truncates), so serving stays on the warmed signatures.  Pass
+    ``grow=True`` to instead extend the ladder geometrically (offline
+    use).
+    """
+    idx = bisect.bisect_left(buckets, n)
+    if idx < len(buckets):
+        return buckets[idx]
+    if not grow:
+        return buckets[-1]
+    cap = buckets[-1]
+    while cap < n:
+        cap *= 2
+    return cap
 
 
 def resolve_device(
@@ -63,6 +373,14 @@ def resolve_device(
             "(device='cpu', --device cpu) to synthesize on it"
         )
     return device
+
+
+# The fused-stage gate on the card by decoder dtype, when the voice's
+# tpu.pallas_stage_max_channels does not set it: the widest decoder stage
+# at which the kernel is no slower than the plain cuDNN path at B=1 and
+# B=4 in the 128- and 256-frame buckets (the sweep in chip_smoke.py,
+# PERF.md).  f32 runs the FFMA kernel, bf16 the tensor-core one.
+STAGE_MAX_CHANNELS = {torch.float32: 32, torch.bfloat16: 64}
 
 
 _F32_LOCK = threading.Lock()
@@ -324,7 +642,11 @@ class TorchVitsSession:
         )
         stage_max = config.tpu.pallas_stage_max_channels
         if stage_max is None:
-            stage_max = 32 if self.device.type == "cuda" else 0
+            stage_max = (
+                STAGE_MAX_CHANNELS.get(decoder_dtype, 32)
+                if self.device.type == "cuda"
+                else 0
+            )
         self.model = VitsModel(
             config.model,
             decoder_dtype=decoder_dtype,

@@ -16,15 +16,14 @@ import json
 import typing
 from pathlib import Path
 
-from mimic3_tpu.config import (
+from ..config import (
     ModelConfig,
     PhonemesConfig,
     Phonemizer,
     TrainingConfig,
 )
-from mimic3_tpu.runtime.convert import save_pytree_npz
-
 from ..models.vits.model import init_params
+from .convert import save_pytree_npz
 
 _META_SYMBOLS = ["_", "^", "$", "#"]
 _CHARS = list("abcdefghijklmnopqrstuvwxyz0123456789.,!?;:'- ")

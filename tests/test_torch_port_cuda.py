@@ -173,3 +173,84 @@ def test_resblock_kernel_rejects_unsupported_input(cuda):
     with pytest.raises(ValueError):
         tres.fused_resblock_subblock(x, w, None, w, None, kernel_size=3,
                                      dilation=1)
+
+
+def _corr(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.corrcoef(a.ravel(), b.ravel())[0, 1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "c,c_in,post,batch,t_in",
+    [
+        (32, 64, True, 1, 128 * 128),  # last stage, 128-frame bucket
+        (32, 64, True, 4, 256 * 128),  # last stage, 256-frame bucket
+        (64, 128, False, 4, 256 * 64),  # C=64 stage with ups 128->64
+        (64, None, False, 1, 256 * 128),  # C=64 stage alone
+    ],
+)
+def test_stage_tensor_cores_at_table_shapes(cuda, c, c_in, post, batch,
+                                            t_in):
+    """bf16 on the tensor-core path at the decoder's shapes: correlation
+    > 0.999 with the plain bf16 path."""
+    rng = np.random.RandomState(c + batch)
+    kw = _stage(rng, c, c_in, post, cuda)
+    rb = kw.pop("resblock_params")
+    weights = tstage.pack_stage_weights(rb, KERNELS, DILATIONS, device=cuda,
+                                        **kw)
+    assert weights.fragments is not None and tstage.uses_mma(
+        c, torch.bfloat16
+    )
+    x = torch.from_numpy(
+        rng.randn(batch, c_in or c, t_in).astype(np.float32)
+    ).to(cuda, torch.bfloat16)
+    ref = tstage.hifigan_stage_plain(rb, x, KERNELS, DILATIONS, **kw)
+    got = tstage.hifigan_stage_fused(rb, x, KERNELS, DILATIONS,
+                                     weights=weights, **kw)
+    torch.cuda.synchronize()
+    ref, got = ref.float().cpu().numpy(), got.float().cpu().numpy()
+    assert got.shape == ref.shape and np.isfinite(got).all()
+    assert _corr(got, ref) > 0.999
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "c,t,b,k,d",
+    [
+        (32, 65536, 1, 11, 5),  # the decoder's stage lengths, 256 frames
+        (64, 32768, 1, 11, 5),
+        (128, 16384, 1, 11, 5),
+        (256, 2048, 1, 11, 5),
+        (128, 65536, 16, 3, 5),  # the profiling shape
+        (24, 999, 2, 7, 3),  # C padded to the MMA depth, two groups
+    ],
+)
+def test_resblock_tensor_cores_at_table_shapes(cuda, c, t, b, k, d):
+    """bf16 on the tensor-core path: correlation > 0.999 on the output and
+    > 0.9999 on the branch out - x against the plain bf16 path."""
+    from mimic3_tpu_torch.ops import resblock as tres
+
+    rng = np.random.RandomState(c + k)
+    bound = 1.0 / np.sqrt(c * k)
+
+    def uniform(*shape):
+        return torch.from_numpy(
+            rng.uniform(-bound, bound, shape).astype(np.float32)
+        ).to(cuda)
+
+    w1, w2, b1, b2 = uniform(c, c, k), uniform(c, c, k), uniform(c), uniform(c)
+    x = torch.from_numpy(rng.randn(b, c, t).astype(np.float32)).to(
+        cuda, torch.bfloat16
+    )
+    packed = tres.pack_subblock_weights(w1, b1, w2, b2, torch.bfloat16, cuda)
+    assert packed.mma
+    kw = dict(kernel_size=k, dilation=d)
+    ref = tres.resblock_subblock_plain(x, w1, b1, w2, b2, **kw)
+    got = tres.fused_resblock_subblock(x, w1, b1, w2, b2, weights=packed,
+                                       **kw)
+    torch.cuda.synchronize()
+    xf = x.float().cpu().numpy()
+    ref, got = ref.float().cpu().numpy(), got.float().cpu().numpy()
+    assert np.isfinite(got).all()
+    assert _corr(got, ref) > 0.999
+    assert _corr(got - xf, ref - xf) > 0.9999

@@ -120,17 +120,26 @@ def test_ragged_length_matches_jax_resblock():
 
 
 def test_pack_subblock_weights_layout():
-    """[Cout, Cin, K] -> [Cin, K, Cout], rounded to the activation dtype
-    and held as float32; a missing bias packs as zeros."""
-    w = torch.randn(16, 16, 3)
+    """FFMA layout (float32, and bf16 below 16 channels): [Cout, Cin, K]
+    -> [Cin, K, Cout], rounded to the activation dtype and held as
+    float32; a missing bias packs as zeros.  bf16 from 16 channels packs
+    MMA fragments instead (test_torch_port_mma.py)."""
+    w = torch.randn(8, 8, 3)
     packed = tres.pack_subblock_weights(w, None, w * 2, None, torch.bfloat16)
-    assert packed.w1.dtype == torch.float32
-    assert packed.w1.shape == (16, 3, 16)
+    assert packed.w1.dtype == torch.float32 and not packed.mma
+    assert packed.w1.shape == (8, 3, 8)
     torch.testing.assert_close(
         packed.w1, w.to(torch.bfloat16).float().permute(1, 2, 0)
     )
-    assert not packed.b1.any() and packed.b2.shape == (16,)
-    assert (packed.channels, packed.kernel_size) == (16, 3)
+    assert not packed.b1.any() and packed.b2.shape == (8,)
+    assert (packed.channels, packed.kernel_size) == (8, 3)
+    w = torch.randn(16, 16, 3)
+    packed = tres.pack_subblock_weights(w, None, w * 2, None, torch.float32)
+    assert not packed.mma and packed.w1.shape == (16, 3, 16)
+    torch.testing.assert_close(packed.w1, w.permute(1, 2, 0))
+    assert tres.pack_subblock_weights(
+        w, None, w * 2, None, torch.bfloat16
+    ).mma
     with pytest.raises(ValueError):
         tres.pack_subblock_weights(w, None, torch.randn(16, 16, 5), None,
                                    torch.float32)

@@ -230,11 +230,13 @@ def test_no_device_named_raises_without_card(tmp_path, monkeypatch):
 
 def test_server_runs_with_jax_blocked(tmp_path):
     """The port's server imports and answers with
-    ``sys.modules['jax'] = None``."""
+    ``sys.modules['jax'] = None`` and ``sys.modules['mimic3_tpu'] =
+    None``."""
     code = textwrap.dedent(
         f"""
         import io, sys, urllib.request, wave
         sys.modules["jax"] = None
+        sys.modules["mimic3_tpu"] = None
         from mimic3_tpu_torch.runtime.testvoice import create_test_voice
         from mimic3_tpu_torch.server.__main__ import create_app
         from test_torch_server_thread import ServerThread
@@ -252,8 +254,10 @@ def test_server_runs_with_jax_blocked(tmp_path):
                 assert w.getframerate() == 22050 and w.getnframes() > 0
         srv.stop()
         app.shutdown()
-        assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
-                       if sys.modules[m] is not None)
+        assert not any(
+            m.split(".")[0] in ("jax", "mimic3_tpu") for m in sys.modules
+            if sys.modules[m] is not None
+        )
         print("ok")
         """
     )

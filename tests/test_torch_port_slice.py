@@ -224,11 +224,13 @@ def test_noise_is_invariant_to_slot_bucket_and_offset(sessions):
 
 def test_port_runs_with_jax_blocked(tmp_path):
     """Engine, CLI and test voice of the port import and synthesize with
-    ``sys.modules['jax'] = None``."""
+    ``sys.modules['jax'] = None`` and ``sys.modules['mimic3_tpu'] =
+    None``: the port needs neither JAX nor the JAX package."""
     code = textwrap.dedent(
         f"""
         import sys, wave
         sys.modules["jax"] = None
+        sys.modules["mimic3_tpu"] = None
         import mimic3_tpu_torch, mimic3_tpu_torch.cli
         from mimic3_tpu_torch.engine import (
             Mimic3Settings, Mimic3TextToSpeechSystem,
@@ -251,8 +253,10 @@ def test_port_runs_with_jax_blocked(tmp_path):
         assert rc == 0
         with wave.open(root + "/out/Hello_world.wav") as f:
             assert f.getframerate() == 22050 and f.getnframes() > 0
-        assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
-                       if sys.modules[m] is not None)
+        assert not any(
+            m.split(".")[0] in ("jax", "mimic3_tpu") for m in sys.modules
+            if sys.modules[m] is not None
+        )
         print("ok")
         """
     )

@@ -11,8 +11,7 @@ import time
 import typing
 import urllib.request
 
-from mimic3_tpu.server.app import TtsApp
-from mimic3_tpu_torch.server.app import build_server
+from mimic3_tpu_torch.server.app import TtsApp, build_server
 
 
 class ServerThread:
