@@ -17,7 +17,14 @@ and read just after:
 - streaming: ``synthesize_ids_chunked`` and ``stream_start_batch``;
 - the HTTP server, in process on a background thread: preload with
   warmup, a WAV, a low-latency stream, a burst of concurrent requests, a
-  profile capture, and no signature first run after the warmup.
+  profile capture, and no signature first run after the warmup;
+- a voice that ships only ``generator.onnx``, a real ``torch.onnx.export``
+  of the independent torch oracle (``tests/torch_oracle.py``) at the same
+  widths: converted on first load, held to the oracle;
+- an MB-iSTFT voice (``decoder_type: "mb-istft"``): card against CPU,
+  bf16 against f32, no stage launch, timed in turns with HiFi-GAN;
+- speculative decode on and off: the same audio, and the host's wait on
+  the duration totals against the speculative decode queued behind them.
 
     python3 chip_smoke.py
 
@@ -405,6 +412,23 @@ def time_session(session, batches, runs: int):
     return wall, audio_sec / wall
 
 
+def device_ms_per_call(session, batches, calls: int = 3) -> float:
+    """Kernel time on the card per ``synthesize_ids_batch`` call: the sum
+    of the device times ``torch.profiler`` records over ``calls`` calls
+    (overlaps counted twice; one stream, so there are few)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    session.synthesize_ids_batch(batches)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            session.synthesize_ids_batch(batches)
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / (
+        1000.0 * calls
+    )
+
+
 def http(base, path, data=None, timeout=300):
     req = urllib.request.Request(
         base + path, data=data, method="POST" if data is not None else "GET"
@@ -742,6 +766,332 @@ def server_path(root, card_line):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the voices the port serves beside the HiFi-GAN test voice
+# ---------------------------------------------------------------------------
+
+
+def install_onnx_stub() -> None:
+    """torch's TorchScript ONNX exporter imports the ``onnx`` package only
+    to scan the finished model for custom functions (there are none); the
+    card's machine has no ``onnx``, so a stub answers that scan (as
+    tests/test_onnx_export_real.py does)."""
+    import types
+
+    if "onnx" in sys.modules:
+        return
+    stub = types.ModuleType("onnx")
+
+    class _Graph:
+        node = ()
+
+    class _Model:
+        graph = _Graph()
+        functions = []
+
+    stub.load_model_from_string = lambda _b: _Model()
+    sys.modules["onnx"] = stub
+
+
+def export_oracle_voice(voice_dir: Path, num_symbols: int):
+    """``generator.onnx`` of the independent torch oracle at the ``*_low``
+    widths, exported for real (weight-norm initializers anonymized).  Its
+    duration flows and coupling posts get weights so durations vary
+    (about 4 frames per phoneme, like real voices) and the flow acts.
+    Returns the oracle (f32, on the CPU)."""
+    sys.path.insert(0, str(REPO / "tests"))
+    import torch_oracle as oracle
+
+    torch.manual_seed(1234)
+    net = oracle.SynthesizerTrn(num_symbols).eval()
+    gen = torch.Generator().manual_seed(1234)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name == "dp.flows.0.m":
+                p.copy_(torch.tensor([[-1.4], [0.0]]))
+            elif re.fullmatch(r"dp\.flows\.\d+\.proj\.weight", name):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.3)
+            elif re.fullmatch(r"flow\.flows\.\d+\.post\.weight", name):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.1)
+
+    class Wrap(torch.nn.Module):
+        def __init__(self, net):
+            super().__init__()
+            self.net = net
+
+        def forward(self, ids, lengths, dur_noise, prior_noise):
+            return self.net.infer(
+                ids, lengths, noise_scale=0.667, length_scale=1.0,
+                noise_w=0.8, dur_noise=dur_noise, prior_noise=prior_noise,
+            )
+
+    install_onnx_stub()
+    t_text, frames = 9, 1000  # prior noise longer than any trace output
+    torch.onnx.export(
+        Wrap(net),
+        (torch.randint(1, num_symbols, (1, t_text),
+                       generator=torch.Generator().manual_seed(2)),
+         torch.tensor([t_text]), torch.zeros(1, 2, t_text),
+         torch.zeros(1, 192, frames)),
+        str(voice_dir / "generator.onnx"),
+        input_names=["input", "input_lengths", "dur_noise", "prior_noise"],
+        output_names=["output", "y_lengths", "w_ceil"],
+        do_constant_folding=True, opset_version=17, dynamo=False,
+    )
+    return net
+
+
+def onnx_path(root):
+    """A voice that ships only generator.onnx (phase 12): converted on
+    first load, the npz taken on the second, then held to the torch
+    oracle it was exported from.  Returns the stage launches."""
+    from mimic3_tpu_torch.engine import Mimic3Settings, Mimic3TextToSpeechSystem
+    from mimic3_tpu_torch.ops import stage
+    from mimic3_tpu_torch.runtime.convert import flatten_pytree, load_pytree_npz
+    from mimic3_tpu_torch.runtime.session import device_work
+    from mimic3_tpu_torch.runtime.testvoice import create_test_voice
+    from mimic3_tpu_torch.runtime.voice import load_from_directory
+
+    # the test voice's config.json (ModelConfig defaults = the *_low
+    # widths) and phonemes.txt; its weights replaced by an ONNX export
+    voice_dir = create_test_voice(root / "en_US" / "onnx_low", seed=1234)
+    (voice_dir / "generator.npz").unlink()
+    n_symbols = len((voice_dir / "phonemes.txt").read_text().splitlines())
+    t0 = time.perf_counter()
+    net = export_oracle_voice(voice_dir, n_symbols)
+    onnx_mb = (voice_dir / "generator.onnx").stat().st_size / 1e6
+    say("onnx", f"torch.onnx.export of the *_low oracle on the CPU: "
+        f"{onnx_mb:.1f} MB in {time.perf_counter() - t0:.1f} s")
+
+    stage.launches = 0
+    key = "en_US/onnx_low"
+    det = Mimic3TextToSpeechSystem(Mimic3Settings(
+        voices_directories=[str(root)], use_deterministic_compute=True,
+        noise_scale=0.0, noise_w=0.0,
+    ))
+    t0 = time.perf_counter()
+    det.preload_voice(key)
+    first_s = time.perf_counter() - t0
+    flat = flatten_pytree(load_pytree_npz(voice_dir / "generator.npz"))
+    n_params = int(sum(v.size for v in flat.values()))
+    t0 = time.perf_counter()
+    again = load_from_directory(voice_dir, deterministic=True,
+                                share_sessions=False)
+    second_s = time.perf_counter() - t0
+    say("onnx", f"engine load converting generator.onnx: {first_s:.2f} s "
+        f"({len(flat)} tensors, {n_params} parameters); second load from "
+        f"generator.npz: {second_s:.2f} s")
+    del again
+
+    voice = det.preloaded_voice(key)
+    ids = phoneme_ids(voice, TEXT)
+    with torch.no_grad():
+        want, want_frames, w_ceil = net.infer(
+            torch.tensor([ids]), torch.tensor([len(ids)]), noise_scale=0.0,
+            length_scale=1.0, noise_w=0.0,
+        )
+    # the oracle decodes exactly its frames; the session's frame bucket
+    # pads past them, which moves the last few frames (as in the JAX
+    # package): hold the model at the oracle's frame count, then run the
+    # session's own path
+    session = voice.session
+    with device_work():
+        ids_t = torch.tensor([ids], device="cuda")
+        len_t = torch.tensor([len(ids)], device="cuda")
+        got_dur, totals = session.model.infer_durations(
+            session.params, ids_t, len_t, 0, 1.0, 0.0
+        )
+        frames = int(totals[0])
+        audio, n = session.model.decode_frames(
+            session.params, ids_t, len_t, got_dur, frames, 0, 0.0,
+            stage_weights=session.stage_weights,
+        )
+        got = audio[0, : int(n[0])].float().cpu().numpy()
+    oracle_dur = w_ceil[0, 0].long().numpy()
+    want = want[0].numpy()
+    equal = bool(np.array_equal(got_dur[0].cpu().numpy(), oracle_dur))
+    c = corr(got, want) if got.size == want.size else None
+    wav = session.synthesize_ids(ids, noise_scale=0.0, noise_w=0.0)
+    say("onnx", f"deterministic f32 on the card against the torch oracle "
+        f"(f32, CPU): {len(ids)} phonemes, durations equal {equal} "
+        f"({int(oracle_dur.sum())} frames), corr {c}, max abs diff "
+        f"{np.abs(got - want).max() if c is not None else None}; the "
+        f"session's bucketed call: {wav.size} samples")
+    if not equal or c is None or not c >= 0.999 or wav.size != want.size:
+        raise AssertionError("the converted voice disagrees with its oracle")
+    n_det = stage.launches
+
+    default = Mimic3TextToSpeechSystem(
+        Mimic3Settings(voices_directories=[str(root)], seed=7)
+    )
+    default.voice = key
+    wav = parse_wav(default.text_to_wav(TEXT))
+    n_default = stage.launches - n_det
+    say("onnx", f"default bf16 mode: WAV {wav.size} samples, {n_default} "
+        f"stage launches ({n_det} deterministic)")
+    if min(n_det, n_default) < 1:
+        raise AssertionError("the ONNX voice did not launch the stage kernel")
+    return stage.launches
+
+
+def mbistft_path(root, voice_dir, card_line):
+    """An MB-iSTFT voice (phase 13): card against the port's own CPU
+    output, bf16 against f32, no stage launch, and its time in turns with
+    the HiFi-GAN voice.  Returns the stage launches (0)."""
+    from mimic3_tpu_torch.ops import stage
+    from mimic3_tpu_torch.runtime.testvoice import create_test_voice
+    from mimic3_tpu_torch.runtime.voice import load_from_directory
+
+    mb_dir = create_test_voice(root / "en_US" / "mb_low", seed=1234,
+                               decoder_type="mb-istft")
+    mb_f32_dir = voice_copy(mb_dir, root / "en_US" / "mb_f32_low",
+                            decoder_dtype="float32")
+    stage.launches = 0
+    card_det = load_from_directory(mb_dir, deterministic=True)
+    cpu_det = load_from_directory(mb_dir, deterministic=True, device="cpu")
+    ids = phoneme_ids(card_det, TEXT)
+    batch_ids = [phoneme_ids(card_det, t) for t in BATCH_TEXTS]
+    got = card_det.session.synthesize_ids(ids, noise_scale=0.0, noise_w=0.0)
+    want = cpu_det.session.synthesize_ids(ids, noise_scale=0.0, noise_w=0.0)
+    c_cpu = corr(got, want) if got.size == want.size else None
+    bf16 = load_from_directory(mb_dir).session.synthesize_ids_batch(
+        batch_ids, seed=7)
+    f32 = load_from_directory(mb_f32_dir).session.synthesize_ids_batch(
+        batch_ids, seed=7)
+    same = [a.size for a in bf16] == [a.size for a in f32]
+    c_bf16 = min(corr(a, b) for a, b in zip(bf16, f32)) if same else None
+    launches = stage.launches
+    say("mbistft", f"full-width MB-iSTFT voice: deterministic card vs CPU "
+        f"{got.size} / {want.size} samples, corr {c_cpu}; bf16 vs f32 "
+        f"decoder, batch of 4, min corr {c_bf16}; {launches} stage launches")
+    if c_cpu is None or not c_cpu >= 0.999:
+        raise AssertionError("MB-iSTFT on the card disagrees with the CPU")
+    if c_bf16 is None or not c_bf16 > 0.99:
+        raise AssertionError("MB-iSTFT bf16 strays from its f32 decoder")
+    if launches != 0:
+        raise AssertionError("the MB-iSTFT path launched the stage kernel")
+
+    hifigan = load_from_directory(voice_dir).session
+    mb = load_from_directory(mb_dir).session
+    times = {}
+    for batch in (1, 4):
+        seqs = [ids] if batch == 1 else batch_ids
+        h1 = time_session(hifigan, seqs, 5)
+        m1 = time_session(mb, seqs, 5)
+        m2 = time_session(mb, seqs, 5)
+        h2 = time_session(hifigan, seqs, 5)
+        for name, (a, b) in (("hifigan", (h1, h2)), ("mb-istft", (m1, m2))):
+            times[(name, batch)] = ((a[0] + b[0]) / 2, (a[1] + b[1]) / 2)
+        (hw, hr), (mw, mr) = times[("hifigan", batch)], times[("mb-istft",
+                                                               batch)]
+        say("time", f"default mode, batch {batch}: HiFi-GAN {hw * 1000:.1f} "
+            f"ms per call, {hr:.1f} audio-s/s; MB-iSTFT {mw * 1000:.1f} ms, "
+            f"{mr:.1f} audio-s/s; ratio {hw / mw:.2f} ({card_line})")
+        say("time", f"device time per call (torch.profiler, sum of "
+            f"kernels), batch {batch}: HiFi-GAN "
+            f"{device_ms_per_call(hifigan, seqs):.2f} ms, MB-iSTFT "
+            f"{device_ms_per_call(mb, seqs):.2f} ms")
+    return launches
+
+
+def speculate_path(root, voice_dir, card_line):
+    """Speculative decode on and off (phase 14): the same audio, how often
+    the prediction held, the wall time both ways, and whether the host
+    had the totals before the speculative decode finished.  Returns the
+    stage launches of the timed calls."""
+    from mimic3_tpu_torch.ops import stage
+    from mimic3_tpu_torch.runtime.voice import load_from_directory
+
+    off_dir = voice_copy(voice_dir, root / "en_US" / "nospec_low",
+                         speculative_decode=False)
+    on = load_from_directory(voice_dir, deterministic=True,
+                             share_sessions=False)
+    off = load_from_directory(off_dir, deterministic=True,
+                              share_sessions=False)
+    batches = {1: [phoneme_ids(on, TEXT)],
+               4: [phoneme_ids(on, t) for t in BATCH_TEXTS]}
+    warm = dict(text_buckets=(32, 64, 128), frame_buckets=(128, 256, 512),
+                batch_sizes=(1, 4))
+    for v in (on, off):
+        v.session.warmup(**warm)
+        for seqs in batches.values():  # the estimate's first observation
+            v.session.synthesize_ids_batch(seqs, seed=1)
+    stage.launches = 0
+    walls = {(name, b): [] for name in ("on", "off") for b in batches}
+    worst = 0.0
+    for rnd in range(5):
+        for b, seqs in batches.items():
+            outs = {}
+            for name, v in (("on", on), ("off", off)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs[name] = v.session.synthesize_ids_batch(
+                    seqs, seed=100 + rnd
+                )
+                walls[(name, b)].append(time.perf_counter() - t0)
+            if [a.size for a in outs["on"]] != [a.size for a in outs["off"]]:
+                raise AssertionError("speculation changed the lengths")
+            worst = max(worst, max(float(np.abs(x - y).max())
+                                   for x, y in zip(outs["on"], outs["off"])))
+    launches = stage.launches
+    spec = on.session.speculation
+    say("speculate", f"20 calls in turns, f32 deterministic voice: max abs "
+        f"diff on vs off {worst:.3g} (bar 1e-5); speculative decodes "
+        f"{spec['dispatched']}: used {spec['used']}, fell back "
+        f"{spec['fell_back']}, skipped {spec['skipped']}; totals on the "
+        f"host before the speculative decode finished in "
+        f"{spec['overlapped']} of them; {launches} stage launches")
+    for b in batches:
+        say("time", f"speculation on / off, batch {b}: "
+            f"{np.median(walls[('on', b)]) * 1000:.1f} / "
+            f"{np.median(walls[('off', b)]) * 1000:.1f} ms per call, "
+            f"median of 5 ({card_line})")
+    for name, v in (("on", on), ("off", off)):
+        hits = {k: n for k, n in v.session.stats.hits_snapshot().items()
+                if k.startswith("decode")}
+        say("speculate", f"decode dispatches with speculation {name} "
+            f"(warmup not counted): {hits}")
+
+    # the host's cost of the noise a speculative decode needs before the
+    # sync: the frame-indexed prior noise of the bucket, made on the CPU
+    # and staged to the card through pinned memory
+    from mimic3_tpu_torch.models.vits.model import indexed_noise, upload
+
+    dev = torch.device("cuda")
+    for frames in (128, 256, 512):
+        host_ms = []
+        for i in range(20):
+            t0 = time.perf_counter()
+            upload(indexed_noise(i, 1, 0, frames, 192), dev)
+            host_ms.append((time.perf_counter() - t0) * 1000)
+        say("speculate", f"prior noise for a {frames}-frame bucket: "
+            f"{np.median(host_ms):.3f} ms of host time (median of 20)")
+    if worst > 1e-5:
+        raise AssertionError("speculation changed the audio")
+    if spec["used"] < 1 or off.session.speculation["dispatched"]:
+        raise AssertionError("speculation did not run as configured")
+    if on.session.hot_path_compiles() or off.session.hot_path_compiles():
+        raise AssertionError("a signature ran first after warmup")
+
+    # one profiled call: the host's return from the totals wait against
+    # the speculative decode's end on the device
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        before = dict(spec)
+        on.session.synthesize_ids_batch(batches[4], seed=999)
+    overlapped = spec["overlapped"] - before["overlapped"]
+    say("time", f"device time per call, batch 4: speculation on "
+        f"{device_ms_per_call(on.session, batches[4]):.2f} ms, off "
+        f"{device_ms_per_call(off.session, batches[4]):.2f} ms")
+    say("speculate", f"profiled call (batch 4): speculative decode "
+        f"{'used' if spec['used'] > before['used'] else 'not used'}; the "
+        f"host returned from the totals wait "
+        f"{'before' if overlapped else 'after'} the speculative decode "
+        f"finished")
+    return launches
+
+
 def main() -> int:
     # -- 1. environment ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -841,7 +1191,7 @@ def main() -> int:
         rng, 128, 65536, 16, 3, 5, torch.bfloat16, iters=5
     )
 
-    # -- 5-11. the paths -------------------------------------------------------------
+    # -- 5-14. the paths -------------------------------------------------------------
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         t0 = time.perf_counter()
@@ -852,6 +1202,9 @@ def main() -> int:
         res_launches, _ = profile_path()
         launches["streaming"] = streaming_path(voice_dir, card_line)
         launches["server"] = server_path(root, card_line)
+        launches["onnx"] = onnx_path(root)
+        launches["mbistft"] = mbistft_path(root, voice_dir, card_line)
+        launches["speculate"] = speculate_path(root, voice_dir, card_line)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

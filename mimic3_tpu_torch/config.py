@@ -257,8 +257,8 @@ class ModelConfig:
 
     decoder_type: str = "hifigan"
     """Decoder family: "hifigan" (reference voices) or "mb-istft"
-    (multi-band iSTFT decoder, ~4-10x cheaper — mimic3-tpu extension
-    for newly trained voices)."""
+    (multi-band iSTFT decoder — mimic3-tpu extension for newly trained
+    voices; its time against HiFi-GAN on the card is in PERF.md)."""
 
     subbands: int = 4
     istft_n_fft: int = 16

@@ -35,6 +35,7 @@ from . import duration as dur
 from . import encoder as enc
 from . import flow as flw
 from . import hifigan as hfg
+from . import mbistft as mbi
 from .layers import Params, sequence_mask
 
 
@@ -63,15 +64,33 @@ class VitsHyperparams:
     gin_channels: int = 0
     use_sdp: bool = True
     decoder_type: str = "hifigan"
+    subbands: int = 4
+    istft_n_fft: int = 16
+    istft_hop: int = 4
+    mb_upsample_rates: typing.Tuple[int, ...] = (4, 4)
+    mb_upsample_kernel_sizes: typing.Tuple[int, ...] = (16, 16)
 
     @property
     def hop_length(self) -> int:
+        if self.decoder_type == "mb-istft":
+            return mbi.mb_istft_hop(
+                self.mb_upsample_rates, self.istft_hop, self.subbands
+            )
         return math.prod(self.upsample_rates)
 
     @staticmethod
     def from_config(config: ModelConfig) -> "VitsHyperparams":
         return VitsHyperparams(
             decoder_type=getattr(config, "decoder_type", "hifigan"),
+            subbands=getattr(config, "subbands", 4),
+            istft_n_fft=getattr(config, "istft_n_fft", 16),
+            istft_hop=getattr(config, "istft_hop", 4),
+            mb_upsample_rates=tuple(
+                getattr(config, "mb_upsample_rates", (4, 4))
+            ),
+            mb_upsample_kernel_sizes=tuple(
+                getattr(config, "mb_upsample_kernel_sizes", (16, 16))
+            ),
             num_symbols=config.num_symbols,
             n_speakers=config.n_speakers,
             inter_channels=config.inter_channels,
@@ -138,6 +157,16 @@ def indexed_noise(
         chunks.append(torch.randn(NOISE_CHUNK, channels, generator=gen))
     offset = start - first * NOISE_CHUNK
     return torch.cat(chunks)[offset : offset + count]
+
+
+def upload(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor on ``device``.  To a card the copy is staged in
+    pinned memory and does not block the host: a plain ``.to("cuda")``
+    of pageable memory waits for the stream, which would stall the host
+    behind the work already queued (the speculative decode's)."""
+    if device.type != "cuda" or t.device.type == "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 # ---------------------------------------------------------------------------
@@ -355,19 +384,44 @@ def _init_hifigan(ini: _Init, hp: VitsHyperparams) -> Params:
     return p
 
 
+DECODER_TYPES = ("hifigan", "mb-istft")
+
+
+def _check_decoder(hp: VitsHyperparams) -> None:
+    if hp.decoder_type not in DECODER_TYPES:
+        raise ValueError(
+            f"unknown decoder_type {hp.decoder_type!r} (one of "
+            f"{', '.join(DECODER_TYPES)})"
+        )
+
+
 def init_params(seed: int, config: ModelConfig) -> Params:
     """Random VITS parameters with the key names and shapes of
     ``mimic3_tpu.models.vits.init_vits_params`` (JAX layout, weight norm
     unfolded), drawn from a seeded ``torch.Generator``."""
     hp = VitsHyperparams.from_config(config)
-    if hp.decoder_type != "hifigan":
-        raise ValueError(f"decoder {hp.decoder_type!r} is not ported yet")
+    _check_decoder(hp)
     ini = _Init(seed)
     params: Params = {
         "enc_p": _init_encoder(ini, hp),
         "dp": _init_sdp(ini, hp) if hp.use_sdp else _init_dp(ini, hp),
         "flow": _init_flow(ini, hp),
-        "dec": _init_hifigan(ini, hp),
+        "dec": (
+            mbi.init_mb_istft(
+                ini,
+                hp.inter_channels,
+                initial_channel=hp.upsample_initial_channel,
+                subbands=hp.subbands,
+                istft_n_fft=hp.istft_n_fft,
+                upsample_rates=hp.mb_upsample_rates,
+                upsample_kernel_sizes=hp.mb_upsample_kernel_sizes,
+                resblock_kernel_sizes=hp.resblock_kernel_sizes,
+                resblock_dilation_sizes=hp.resblock_dilation_sizes,
+                gin_channels=hp.gin_channels,
+            )
+            if hp.decoder_type == "mb-istft"
+            else _init_hifigan(ini, hp)
+        ),
     }
     if hp.n_speakers > 1:
         params["emb_g"] = {
@@ -413,10 +467,7 @@ class VitsModel:
         stage_max_channels: int = 0,
     ):
         self.hp = VitsHyperparams.from_config(config)
-        if self.hp.decoder_type != "hifigan":
-            raise ValueError(
-                f"decoder {self.hp.decoder_type!r} is not ported yet"
-            )
+        _check_decoder(self.hp)
         self.decoder_dtype = decoder_dtype
         self.stage_max_channels = stage_max_channels
 
@@ -433,7 +484,9 @@ class VitsModel:
         self, dec_params: Params, device: torch.device
     ) -> typing.Dict[int, "hfg.StageWeights"]:
         """Kernel weight packs for the fused decoder stages (once per
-        voice; empty when no stage runs fused)."""
+        voice; empty when no stage runs fused, as always for MB-iSTFT)."""
+        if self.hp.decoder_type == "mb-istft":
+            return {}
         stages = hfg.fused_stages(
             dec_params,
             resblock_type=self.hp.resblock,
@@ -504,12 +557,14 @@ class VitsModel:
         x, m_p, logs_p = self.encode(params, ids, x_mask)
         if self.hp.use_sdp:
             if dur_noise is None:
-                noise = indexed_noise(seed, DURATION_NOISE_STREAM, 0, t, 2)
-                noise = noise.t()[None].expand(b, 2, t)
+                noise = upload(
+                    indexed_noise(seed, DURATION_NOISE_STREAM, 0, t, 2),
+                    x.device,
+                ).t()[None].expand(b, 2, t)
             else:
-                noise = dur_noise.transpose(1, 2)
+                noise = upload(dur_noise, x.device).transpose(1, 2)
             logw = dur.stochastic_duration_predictor_infer(
-                params["dp"], x, x_mask, noise.to(x.device), noise_w, g=g
+                params["dp"], x, x_mask, noise, noise_w, g=g
             )
         else:
             logw = dur.duration_predictor(params["dp"], x, x_mask, g=g)
@@ -600,13 +655,15 @@ class VitsModel:
             logs_p, durations, num_frames, frame_offset
         )
         if prior_noise is None:
-            noise = indexed_noise(
-                seed, PRIOR_NOISE_STREAM, frame_offset, num_frames,
-                m_p_f.shape[1],
+            noise = upload(
+                indexed_noise(
+                    seed, PRIOR_NOISE_STREAM, frame_offset, num_frames,
+                    m_p_f.shape[1],
+                ),
+                m_p_f.device,
             ).t()[None]
         else:
-            noise = prior_noise.transpose(1, 2)
-        noise = noise.to(m_p_f.device)
+            noise = upload(prior_noise, m_p_f.device).transpose(1, 2)
         z_p = (m_p_f + noise * torch.exp(logs_p_f) * noise_scale) * y_mask
         z = flw.residual_coupling_block_reverse(
             params["flow"], z_p, y_mask, g=g
@@ -625,7 +682,23 @@ class VitsModel:
             typing.Mapping[int, "hfg.StageWeights"]
         ] = None,
     ) -> torch.Tensor:
-        """Latent frames [B, inter, F] -> waveform [B, F*hop]."""
+        """Latent frames [B, inter, F] -> waveform [B, F*hop] via the
+        configured decoder family."""
+        hp = self.hp
+        if hp.decoder_type == "mb-istft":
+            return mbi.mb_istft_generator(
+                dec_params,
+                z,
+                g=g,
+                subbands=hp.subbands,
+                istft_n_fft=hp.istft_n_fft,
+                istft_hop=hp.istft_hop,
+                resblock_kernel_sizes=hp.resblock_kernel_sizes,
+                resblock_dilation_sizes=hp.resblock_dilation_sizes,
+                upsample_rates=hp.mb_upsample_rates,
+                upsample_kernel_sizes=hp.mb_upsample_kernel_sizes,
+                compute_dtype=self.decoder_dtype,
+            )
         return hfg.hifigan_generator(
             dec_params,
             z,

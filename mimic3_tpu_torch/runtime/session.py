@@ -10,7 +10,13 @@ server call: ``synthesize_ids``, ``synthesize_ids_batch``,
 Inputs are padded to the same text, batch and frame buckets as the
 reference.  Synthesis is a duration pass, one host sync on the frame
 totals, then a decode pass over the frame bucket covering the longest
-output.  Streaming runs one fused pass (encoder once, durations, first
+output.  As in the reference, the batch path speculates that decode: it
+enqueues it at a frame bucket predicted from a running estimate of frames
+per phoneme before it waits for the totals, and keeps it if the bucket
+was large enough (the prior noise is frame-indexed, so the bucket never
+changes the audio).  On a card the host waits for the totals' own copy
+(pinned memory and an event), not for the speculative decode queued
+behind it.  Streaming runs one fused pass (encoder once, durations, first
 window) and then decodes overlapped windows from the kept encoder
 statistics; the frame-indexed prior noise makes the windows seam-exact.
 
@@ -21,8 +27,8 @@ and float32 convolutions in float32.  The tracker, the kill-safe SIGTERM,
 ``pick_bucket`` are port copies of those in
 ``mimic3_tpu/runtime/session.py``.
 
-Not ported yet: speculative decode, CUDA graphs per warmed signature, and
-multi-device serving (``dp`` is always 1).
+Not ported yet: CUDA graphs per warmed signature and multi-device
+serving (``dp`` is always 1).
 """
 
 from __future__ import annotations
@@ -422,6 +428,30 @@ def device_work() -> typing.Iterator[None]:
         yield
 
 
+def _start_host_copy(
+    t: torch.Tensor,
+) -> typing.Callable[[], np.ndarray]:
+    """Start copying a small device tensor to the host; returns a wait
+    that blocks for that copy alone and gives the array.
+
+    On a card the copy goes to pinned memory without blocking and an
+    event marks its end, so work enqueued after this call (the
+    speculative decode) does not delay the wait, as ``.cpu()`` would.
+    """
+    if t.device.type != "cuda":
+        return lambda: t.cpu().numpy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+
+    def wait() -> np.ndarray:
+        done.synchronize()
+        return host.numpy()
+
+    return wait
+
+
 def _recap(durations: np.ndarray, cap: int) -> np.ndarray:
     """Clamp cumulative durations at ``cap`` frames (truncation)."""
     cum = np.minimum(np.cumsum(durations, axis=1), cap)
@@ -667,6 +697,23 @@ class TorchVitsSession:
         self.batcher = None  # optional server-side BatchScheduler
         self.batched_continuations = bool(
             getattr(config.tpu, "batched_continuations", True)
+        )
+        # speculative decode: running estimate of frames per phoneme at
+        # unit length_scale, None until the first observation
+        self.speculative_decode = bool(
+            getattr(config.tpu, "speculative_decode", True)
+        )
+        self._ema_frames_per_phoneme: typing.Optional[float] = None
+        # decode signatures that have run as a warmup or a mandatory
+        # decode; speculation dispatches only these (the reference's
+        # compiled-decode set), so it never runs a new shape first
+        self._decode_keys_run: typing.Set[str] = set()
+        # speculative decodes: dispatched, used, fell back (bucket too
+        # small or truncated), skipped (signature never run), and
+        # overlapped (the totals reached the host while the speculative
+        # decode was still running on the device)
+        self.speculation: typing.Dict[str, int] = dict.fromkeys(
+            ("dispatched", "used", "fell_back", "skipped", "overlapped"), 0
         )
         self.stats = SessionStats()
         self.seed = seed
@@ -915,9 +962,31 @@ class TorchVitsSession:
                 self.params, ids_t, lengths_t, call_seed,
                 float(length_scale), float(noise_w), sid=sid_t,
             )
-            totals_np = totals.cpu().numpy()  # the one host sync
+            wait_totals = _start_host_copy(totals)
+
+            def decode(num_frames: int):
+                return self.model.decode_frames(
+                    self.params, ids_t, lengths_t, durations, num_frames,
+                    call_seed, float(noise_scale), sid=sid_t,
+                    stage_weights=self.stage_weights,
+                )
+
+            # speculative decode at a predicted bucket, enqueued before
+            # the host waits for the totals
+            spec_bucket = self._speculative_bucket(
+                b_bucket, t_bucket, lengths[:batch], length_scale
+            )
+            spec_result = spec_done = None
+            if spec_bucket is not None:
+                spec_result = decode(spec_bucket)
+                if self.device.type == "cuda":
+                    spec_done = torch.cuda.Event()
+                    spec_done.record()
+
+            totals_np = wait_totals()  # the one host sync
             needed = int(totals_np[:batch].max())
-            if needed > max_frames_cap:
+            truncated = needed > max_frames_cap
+            if truncated:
                 _LOGGER.warning(
                     "Output of %d frames exceeds cap %d; truncating",
                     needed, max_frames_cap,
@@ -930,14 +999,29 @@ class TorchVitsSession:
             f_bucket = pick_bucket(
                 needed, self.frame_buckets, grow=self.allow_bucket_growth
             )
-            # round up to the nearest warmed decode bucket
-            f_bucket = self._fallback_f(b_bucket, t_bucket, f_bucket)
-            self._note_run(hit_key("decode", b_bucket, t_bucket, f_bucket))
-            audio, sample_lengths = self.model.decode_frames(
-                self.params, ids_t, lengths_t, durations, f_bucket,
-                call_seed, float(noise_scale), sid=sid_t,
-                stage_weights=self.stage_weights,
+            self._observe_frames(totals_np[:batch], lengths[:batch],
+                                 length_scale)
+            used = (
+                spec_result is not None
+                and spec_bucket >= f_bucket
+                and not truncated
             )
+            if spec_result is not None:
+                with self._lock:
+                    self.speculation["used" if used else "fell_back"] += 1
+                    if spec_done is not None and not spec_done.query():
+                        self.speculation["overlapped"] += 1
+            if used:
+                audio, sample_lengths = spec_result  # prediction held
+                f_bucket = spec_bucket
+            else:
+                # round up to the nearest warmed decode bucket
+                f_bucket = self._fallback_f(b_bucket, t_bucket, f_bucket)
+                dec_key = hit_key("decode", b_bucket, t_bucket, f_bucket)
+                self._note_run(dec_key)
+                audio, sample_lengths = decode(f_bucket)
+                with self._lock:
+                    self._decode_keys_run.add(dec_key)
             audio_np = audio.float().cpu().numpy()
             sample_lengths_np = sample_lengths.cpu().numpy()
         results = [
@@ -954,6 +1038,54 @@ class TorchVitsSession:
             self.stats.last_rtf, batch, t_bucket, f_bucket,
         )
         return results
+
+    def _speculative_bucket(
+        self,
+        b_bucket: int,
+        t_bucket: int,
+        lengths: np.ndarray,
+        length_scale: float,
+    ) -> typing.Optional[int]:
+        """The frame bucket to speculate the decode into, or None.
+
+        The estimate is 1.15 x (frames per phoneme) x (longest input) x
+        ``length_scale``, picked into a frame bucket; only a decode
+        signature that has already run qualifies."""
+        with self._lock:
+            est_fpp = self._ema_frames_per_phoneme
+        if (
+            not self.speculative_decode
+            or self.allow_bucket_growth
+            or est_fpp is None
+        ):
+            return None
+        est = est_fpp * float(lengths.max()) * float(length_scale) * 1.15
+        bucket = pick_bucket(
+            min(int(est) + 1, self.frame_buckets[-1]), self.frame_buckets
+        )
+        key = hit_key("decode", b_bucket, t_bucket, bucket)
+        with self._lock:
+            ran = key in self._decode_keys_run
+            self.speculation["dispatched" if ran else "skipped"] += 1
+        if not ran:
+            return None
+        self.stats.record_hit(key)
+        return bucket
+
+    def _observe_frames(
+        self, totals: np.ndarray, lengths: np.ndarray, length_scale: float
+    ) -> None:
+        """Update the frames-per-phoneme estimate (normalized to unit
+        ``length_scale``) for the next call's speculation."""
+        obs = float(totals.sum()) / max(
+            1.0, float(lengths.sum()) * float(length_scale)
+        )
+        obs = min(max(obs, 0.25), 64.0)
+        with self._lock:
+            prev = self._ema_frames_per_phoneme
+            self._ema_frames_per_phoneme = (
+                obs if prev is None else 0.9 * prev + 0.1 * obs
+            )
 
     def synthesize_ids(
         self,
@@ -1316,7 +1448,10 @@ class TorchVitsSession:
                             self.params, ids, lengths, durations, f, 0,
                             0.667, sid=sid, stage_weights=self.stage_weights,
                         )
-                        warmed.add(hit_key("decode", b, t, f))
+                        key = hit_key("decode", b, t, f)
+                        warmed.add(key)
+                        with self._lock:
+                            self._decode_keys_run.add(key)
         if chunk_windows:
             w0, w_cont = min(chunk_windows), max(chunk_windows)
             for b in batch_sizes:

@@ -6,7 +6,8 @@ Counterpart of ``mimic3_tpu/runtime/testvoice.py``: the same
 :func:`~mimic3_tpu_torch.models.vits.model.init_params` (same key names
 and shapes as the JAX initializer, different random values).
 
-Usage: ``python -m mimic3_tpu_torch.runtime.testvoice <voice_dir> [--tiny]``
+Usage: ``python -m mimic3_tpu_torch.runtime.testvoice <voice_dir> [--tiny]
+[--decoder mb-istft]``
 """
 
 from __future__ import annotations
@@ -36,12 +37,15 @@ def create_test_voice(
     seed: int = 1234,
     full_size: bool = True,
     sample_rate: int = 22050,
+    decoder_type: str = "hifigan",
 ) -> Path:
     """Write a synthetic voice directory; returns its path.
 
     ``full_size=True`` uses the ``*_low`` hyperparameters of real Mimic 3
     voices (hidden 192, 6 layers, upsample 512, 8·8·2·2); ``False`` makes
     a tiny model (hidden 64, 2 layers, upsample 128) for tests.
+    ``decoder_type`` picks the decoder family (``"hifigan"`` or
+    ``"mb-istft"``).
     """
     voice_dir = Path(voice_dir)
     voice_dir.mkdir(parents=True, exist_ok=True)
@@ -61,6 +65,7 @@ def create_test_voice(
         )
     if n_speakers > 1:
         model.gin_channels = 256 if full_size else 32
+    model.decoder_type = decoder_type
 
     config = TrainingConfig(seed=seed, model=model)
     config.audio.sample_rate = sample_rate
@@ -108,12 +113,19 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
         action="store_true",
         help="Small model (fast tests) instead of real *_low dimensions",
     )
+    parser.add_argument(
+        "--decoder",
+        choices=("hifigan", "mb-istft"),
+        default="hifigan",
+        help="Decoder family",
+    )
     args = parser.parse_args(argv)
     path = create_test_voice(
         args.voice_dir,
         n_speakers=args.speakers,
         seed=args.seed,
         full_size=not args.tiny,
+        decoder_type=args.decoder,
     )
     print(json.dumps({"voice_dir": str(path)}))
     return 0

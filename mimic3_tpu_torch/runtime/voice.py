@@ -4,12 +4,14 @@ The voice classes of the reference (``text_to_phonemes`` /
 ``word_to_phonemes`` / ``say_as_to_phonemes`` / ``phonemes_to_ids`` /
 ``ids_to_audio``) around a :class:`TorchVitsSession`, and
 :func:`load_from_directory`, which loads a Mimic 3 voice directory
-(``config.json``, ``phonemes.txt``, ``generator.npz``, optional
-``phoneme_map.txt`` / ``speaker_map.csv``) onto one torch device.
+(``config.json``, ``phonemes.txt``, ``generator.npz`` or
+``generator.onnx``, optional ``phoneme_map.txt`` / ``speaker_map.csv``)
+onto one torch device.  A voice that ships only ``generator.onnx`` (every
+voice of the registry) is converted by the port's own converter on first
+use (``runtime/convert.py``).
 
 Port copy of ``mimic3_tpu/runtime/voice.py``: the classes lose the
-``Tpu`` of their names, the data-parallel mesh branch is dropped, and the
-weights load from ``generator.npz`` only.
+``Tpu`` of their names and the data-parallel mesh branch is dropped.
 """
 
 from __future__ import annotations
@@ -283,20 +285,34 @@ def load_from_directory(
 
 
 def _load_voice_params(voice_dir: Path):
-    """The voice's weights from ``generator.npz``.  A voice that ships only
-    ``generator.onnx`` is converted once with the JAX package's converter
-    (``python -m mimic3_tpu.runtime.convert <voice_dir>``), which writes
-    the npz beside it."""
-    from .convert import load_pytree_npz
+    """Load weights: prefer the converted npz; convert ONNX on first use
+    (written beside it, or in memory when the directory is read-only)."""
+    from .convert import (
+        convert_voice_directory,
+        load_pytree_npz,
+        onnx_to_pytree,
+    )
 
     npz_path = voice_dir / "generator.npz"
     if npz_path.is_file():
         return load_pytree_npz(npz_path)
-    if (voice_dir / "generator.onnx").is_file():
-        raise FileNotFoundError(
-            f"{voice_dir} has generator.onnx but no generator.npz: convert "
-            f"it once with python -m mimic3_tpu.runtime.convert {voice_dir}"
-        )
+    onnx_path = voice_dir / "generator.onnx"
+    if onnx_path.is_file():
+        try:
+            convert_voice_directory(voice_dir)
+            return load_pytree_npz(npz_path)
+        except OSError:
+            _LOGGER.warning(
+                "Voice dir %s not writable; converting in memory", voice_dir
+            )
+            # real torch.onnx.export files have anonymized initializer
+            # names that are only recoverable against the voice's
+            # architecture, so pass its model config as the file would
+            model_config = None
+            config_path = voice_dir / "config.json"
+            if config_path.is_file():
+                model_config = TrainingConfig.load_path(config_path).model
+            return onnx_to_pytree(onnx_path, model_config=model_config)
     raise FileNotFoundError(
         f"No generator.npz or generator.onnx in {voice_dir}"
     )

@@ -76,9 +76,21 @@ def test_every_tensor_loads(tmp_path, n_speakers):
         assert port["emb_g"]["weight"].shape == (n_speakers, 32)
 
 
-@pytest.mark.parametrize("use_sdp,n_speakers", [(True, 1), (False, 2)])
-def test_init_params_matches_reference_keys_and_shapes(use_sdp, n_speakers):
+@pytest.mark.parametrize(
+    "use_sdp,n_speakers,decoder_type",
+    [
+        (True, 1, "hifigan"),
+        (False, 2, "hifigan"),
+        (True, 1, "mb-istft"),
+        (False, 2, "mb-istft"),
+    ],
+    ids=["True-1", "False-2", "True-1-mb-istft", "False-2-mb-istft"],
+)
+def test_init_params_matches_reference_keys_and_shapes(
+    use_sdp, n_speakers, decoder_type
+):
     config = ModelConfig(
+        decoder_type=decoder_type,
         num_symbols=40,
         n_speakers=n_speakers,
         hidden_channels=32,
