@@ -24,7 +24,11 @@ and read just after:
 - an MB-iSTFT voice (``decoder_type: "mb-istft"``): card against CPU,
   bf16 against f32, no stage launch, timed in turns with HiFi-GAN;
 - speculative decode on and off: the same audio, and the host's wait on
-  the duration totals against the speculative decode queued behind them.
+  the duration totals against the speculative decode queued behind them;
+- training: ``mimic3-torch-train`` on the full-width voice at batch 16
+  (step times, memory, busy share, a breakdown), the card against the CPU
+  on one step, no kernel launched while training, then the exported
+  ``generator.npz`` served on the card.
 
     python3 chip_smoke.py
 
@@ -39,6 +43,7 @@ from __future__ import annotations
 
 import io
 import json
+import logging
 import os
 import re
 import shutil
@@ -1092,6 +1097,282 @@ def speculate_path(root, voice_dir, card_line):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# training: mimic3-torch-train, then serve what it exported
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH = 16  # as the JAX package's on-chip train smoke
+# the attention key bias: softmax ignores a shift shared by a row, so its
+# gradient is zero in exact arithmetic and float32 rounding noise on
+# either device (tests/torch_train_reference.py)
+ZERO_GRADIENT_SUFFIX = "conv_k.bias"
+TRAIN_WORDS = ("a rainbow is meteorological phenomenon that caused by "
+               "reflection refraction and dispersion of light in water "
+               "droplets resulting spectrum appearing the sky").split()
+
+
+def write_train_dataset(root: Path, n: int = 32, seed: int = 0):
+    """An LJSpeech-style dataset: ``n`` utterances of 1-3 s at 22050 Hz
+    (tones under noise, made from a seed) with texts for the symbols
+    phonemizer.  Returns (metadata.csv, the WAV directory)."""
+    rng = np.random.RandomState(seed)
+    wavs = root / "wavs"
+    wavs.mkdir(parents=True)
+    rows = []
+    for i in range(n):
+        samples = int(22050 * rng.uniform(1.0, 3.0))
+        t = np.arange(samples) / 22050
+        audio = 0.05 * rng.randn(samples)
+        for f in rng.uniform(100, 4000, 4):
+            audio += 0.1 * np.sin(2 * np.pi * f * t + rng.uniform(0, 6.3))
+        with wave.open(str(wavs / f"utt{i:03d}.wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(22050)
+            w.writeframes((np.clip(audio, -1, 1) * 32767).astype(
+                np.int16).tobytes())
+        words = rng.choice(TRAIN_WORDS, size=rng.randint(4, 12))
+        rows.append(f"utt{i:03d}|{' '.join(words)}.")
+    (root / "metadata.csv").write_text("\n".join(rows) + "\n")
+    return root / "metadata.csv", wavs
+
+
+class StepClock(logging.Handler):
+    """Host time of each ``step N`` line the trainer logs (with
+    ``--log-every 1`` each follows a fetch of the step's losses, so the
+    card has finished the step)."""
+
+    def __init__(self):
+        super().__init__()
+        self.times, self.metrics = [], []
+
+    def emit(self, record):
+        if record.getMessage().startswith("step "):
+            self.times.append(time.perf_counter())
+            self.metrics.append(record.args[1])
+
+
+def busy_share(trace: Path) -> tuple:
+    """(device busy share, window ms) of a ``torch.profiler`` Chrome
+    trace: the union of its kernel, memcpy and memset intervals over the
+    window from its first event to its last."""
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy",
+                                        "gpu_memset"))
+    if not device:
+        raise AssertionError("the profiled step holds no device work")
+    start = min(e["ts"] for e in events)
+    end = max(e["ts"] + e["dur"] for e in events)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s_, e_ in device:
+        if cur_e is None or s_ > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s_, e_
+        else:
+            cur_e = max(cur_e, e_)
+    busy += cur_e - cur_s
+    return busy / (end - start), (end - start) / 1000
+
+
+def train_path(root: Path, card_line: str):
+    """mimic3-torch-train on the full-width test voice (phase 15):
+    ``TRAIN_BATCH`` x the config's 8192-sample segment, MPD + MSD; step
+    times, memory, busy share and a breakdown; every loss finite and every
+    parameter with a gradient moved; the card against the CPU on one step;
+    then the exported generator.npz served by the engine on the card.
+    Returns (kernel launches while training, stage launches serving)."""
+    from mimic3_tpu_torch import train_cli
+    from mimic3_tpu_torch.config import TrainingConfig
+    from mimic3_tpu_torch.engine import Mimic3Settings, Mimic3TextToSpeechSystem
+    from mimic3_tpu_torch.models.vits import train as T
+    from mimic3_tpu_torch.ops import resblock, stage
+    from mimic3_tpu_torch.runtime.convert import to_torch_train_params
+    from mimic3_tpu_torch.runtime.dataset import (
+        batches, load_metadata, make_frontend,
+    )
+    from mimic3_tpu_torch.runtime.testvoice import create_test_voice
+
+    voice_dir = create_test_voice(root / "en_US" / "train_low", seed=1234)
+    config = TrainingConfig.load_path(voice_dir / "config.json")
+    metadata, wavs = write_train_dataset(root / "train_data")
+    ckpt = root / "train_ckpt"
+    dev = torch.device("cuda")
+
+    stage.launches = resblock.launches = 0
+    clock = StepClock()
+    logger = logging.getLogger("mimic3_tpu_torch.train_cli")
+    logger.setLevel(logging.INFO)
+    logger.addHandler(clock)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        rc = train_cli.main([
+            str(voice_dir), "--metadata", str(metadata), "--audio-dir",
+            str(wavs), "--batch-size", str(TRAIN_BATCH), "--steps", "6",
+            "--log-every", "1", "--checkpoint-dir", str(ckpt), "--export",
+        ])
+    finally:
+        logger.removeHandler(clock)
+    total_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if rc != 0 or len(clock.times) != 6:
+        raise AssertionError(f"mimic3-torch-train failed (rc {rc})")
+    step_ms = np.diff(clock.times) * 1000  # the 5 steps after the first
+    seg_s = TRAIN_BATCH * config.segment_size / config.audio.sample_rate
+    med = float(np.median(step_ms))
+    say("train", f"mimic3-torch-train, full-width voice, batch "
+        f"{TRAIN_BATCH} x {config.segment_size} samples, 6 steps in "
+        f"{total_s:.1f} s (init, data and export included); steps 2-6: "
+        f"median {med:.1f} ms, min {step_ms.min():.1f}, max "
+        f"{step_ms.max():.1f} ({[round(float(x), 1) for x in step_ms]}); "
+        f"{1000 / med:.2f} steps/s, {seg_s * 1000 / med:.1f} segment "
+        f"audio-s/s; peak memory {peak_gb:.2f} GB ({card_line})")
+    for m in clock.metrics:
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"a loss is not finite: {m}")
+    say("train", f"losses, step 1: {clock.metrics[0]}; step 6: "
+        f"{clock.metrics[-1]}")
+
+    # one more step from the final checkpoint, timed part by part, then
+    # one profiled
+    state = train_cli.load_checkpoint(ckpt / "6", config, dev)
+    frontend = make_frontend(voice_dir)
+    utts = load_metadata(metadata, wavs, frontend)
+    data = batches(utts, config, TRAIN_BATCH, seed=config.seed)
+    step = T.make_train_step(config, max(1, len(utts) // TRAIN_BATCH))
+    gen = torch.Generator(dev).manual_seed(7)
+    marks = []
+
+    def mark(name):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        marks.append((name, event))
+
+    batch = next(data).to(dev)
+    step(state, batch, generator=gen)  # the batch's shapes warm
+    before = [t.detach().clone() for _, t in state.g_leaves + state.d_leaves]
+    marks.clear()
+    state, metrics = step(state, batch, generator=gen, mark=mark)
+    torch.cuda.synchronize()
+    parts = {}
+    for (name, a), (_, b) in zip(marks, marks[1:]):
+        parts[name] = parts.get(name, 0.0) + a.elapsed_time(b)
+    whole = sum(parts.values())
+    say("train", "breakdown of one step (CUDA events, ms): " + ", ".join(
+        f"{k} {v:.1f} ({v / whole:.0%})" for k, v in parts.items())
+        + f"; sum {whole:.1f}")
+    leaves = state.g_leaves + state.d_leaves
+    no_grad = [n for n, t in leaves if not t.grad.any()]
+    stuck = [n for (n, t), b in zip(leaves, before)
+             if t.grad.any() and torch.equal(t.detach(), b)]
+    say("train", f"{len(leaves)} parameter tensors "
+        f"({sum(t.numel() for _, t in leaves) / 1e6:.1f} M parameters: "
+        f"G {sum(t.numel() for _, t in state.g_leaves) / 1e6:.1f} M, D "
+        f"{sum(t.numel() for _, t in state.d_leaves) / 1e6:.1f} M); "
+        f"{len(no_grad)} had no gradient; {len(stuck)} with a gradient "
+        f"did not move")
+    if stuck or not all(torch.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"parameters did not move: {stuck[:5]}")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, batch, generator=gen)
+        torch.cuda.synchronize()
+    trace = root / "train_step_trace.json"
+    prof.export_chrome_trace(str(trace))
+    share, window = busy_share(trace)
+    say("train", f"profiled step: device busy {share:.3f} of "
+        f"{window:.1f} ms (idle share {1 - share:.3f})")
+    n_train = stage.launches + resblock.launches
+    say("train", f"kernel launches while training: stage "
+        f"{stage.launches}, resblock {resblock.launches}")
+    if n_train:
+        raise AssertionError("training launched a kernel")
+    del state, before
+
+    # the card against the port's own CPU path on one step: the same
+    # carried init (decoder gains x10 as in tests/torch_train_reference.py,
+    # where the mel loss's gradient is well conditioned), the same draws,
+    # batch 2, and a zero learning rate so both take the generator's
+    # gradients against the same discriminators
+    one = TrainingConfig.load_path(voice_dir / "config.json")
+    one.learning_rate = 0.0
+    params, disc = T.init_training_params(5, one)
+    for name, t in T.tree_leaves(params["dec"]):
+        if name.endswith("weight_g"):
+            t.mul_(10.0)
+    small = next(batches(utts, one, 2, seed=1))
+    cpu_gen = torch.Generator().manual_seed(11)
+    t_spec = small.audio.shape[1] // one.audio.hop_length
+    noise = T.TrainNoise(
+        posterior=torch.randn(2, one.model.inter_channels, t_spec,
+                              generator=cpu_gen),
+        duration=torch.randn(2, 2, small.phoneme_ids.shape[1],
+                             generator=cpu_gen),
+        starts=T.random_segments(
+            torch.zeros(2, 1, t_spec), small.spec_lengths,
+            one.segment_size // one.audio.hop_length, generator=cpu_gen,
+        )[1],
+    )
+    sides = {}
+    for device in ("cpu", "cuda"):
+        st = T.init_train_state(to_torch_train_params(params, device),
+                                to_torch_train_params(disc, device), one)
+        t0 = time.perf_counter()
+        st, m = T.make_train_step(one)(
+            st, small.to(device), noise=T.TrainNoise(
+                *(x.to(device) for x in (noise.posterior, noise.duration,
+                                         noise.starts))),
+        )
+        sides[device] = ({k: float(v) for k, v in m.items()},
+                         {n: t.grad.cpu() for n, t in st.g_leaves
+                          + st.d_leaves}, time.perf_counter() - t0)
+    (m_cpu, g_cpu, s_cpu), (m_gpu, g_gpu, s_gpu) = sides["cpu"], sides["cuda"]
+    loss_err = max(abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu)
+    scale = max(float(g.abs().max()) for g in g_cpu.values())
+    worst, worst_name, noise = 0.0, None, 0.0
+    for n, g in g_cpu.items():
+        if n.endswith(ZERO_GRADIENT_SUFFIX):
+            # zero in exact arithmetic: rounding noise on both devices
+            noise = max(noise, float(g.abs().max()),
+                        float(g_gpu[n].abs().max()))
+            continue
+        norm = float(g.norm())
+        err = float((g_gpu[n] - g).norm()) / norm if norm else float(
+            g_gpu[n].abs().max())
+        if err > worst:
+            worst, worst_name = err, n
+    say("train", f"card vs CPU, one step at batch 2 x "
+        f"{one.segment_size} samples (CPU {s_cpu:.1f} s, card "
+        f"{s_gpu * 1000:.0f} ms): losses max rel err {loss_err:.2e} "
+        f"(bar 1e-3); gradients max rel L2 {worst:.2e} at {worst_name} "
+        f"(bar 1e-3); the attention key biases' gradients (zero in exact "
+        f"arithmetic) at most {noise / scale:.1e} of the largest gradient "
+        f"(bar 1e-6)")
+    if not (loss_err <= 1e-3 and worst <= 1e-3 and noise <= 1e-6 * scale):
+        raise AssertionError("the card's train step disagrees with the CPU")
+
+    # serve what the trainer exported
+    stage.launches = 0
+    tts = Mimic3TextToSpeechSystem(
+        Mimic3Settings(voices_directories=[str(root)], seed=7)
+    )
+    tts.voice = "en_US/train_low"
+    wav = parse_wav(tts.text_to_wav(TEXT))
+    n_serve = stage.launches
+    say("train", f"exported generator.npz served on the card (bf16 "
+        f"decoder): WAV {wav.size} samples, {n_serve} stage launches")
+    if n_serve < 1:
+        raise AssertionError("serving the trained voice launched no stage")
+    return n_train, n_serve
+
+
 def main() -> int:
     # -- 1. environment ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1205,6 +1486,8 @@ def main() -> int:
         launches["onnx"] = onnx_path(root)
         launches["mbistft"] = mbistft_path(root, voice_dir, card_line)
         launches["speculate"] = speculate_path(root, voice_dir, card_line)
+        launches["train"], launches["train_serve"] = train_path(
+            root, card_line)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

@@ -1,6 +1,8 @@
-"""Residual-coupling flow (reverse direction) and its WaveNet inner net.
+"""Residual-coupling flow and its WaveNet inner net.
 
-Counterpart of ``mimic3_tpu/models/vits/flow.py`` in ``[B, C, T]`` layout.
+Counterpart of ``mimic3_tpu/models/vits/flow.py`` in ``[B, C, T]`` layout:
+reverse at synthesis (prior sample -> decoder latent), forward at training
+(posterior latent -> prior space).
 """
 
 from __future__ import annotations
@@ -58,6 +60,31 @@ def wavenet(
     return output * x_mask
 
 
+def _coupling_mean(
+    params: Params,
+    x0: torch.Tensor,
+    x_mask: torch.Tensor,
+    g: typing.Optional[torch.Tensor],
+) -> torch.Tensor:
+    """A mean-only coupling's shift m(x0)."""
+    h = conv1d(x0, params["pre"]) * x_mask
+    h = wavenet(params["enc"], h, x_mask, g=g)
+    return conv1d(h, params["post"]) * x_mask
+
+
+def residual_coupling_layer(
+    params: Params,
+    x: torch.Tensor,
+    x_mask: torch.Tensor,
+    g: typing.Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Mean-only affine coupling, forward: x1 <- x1 + m(x0)."""
+    half = x.shape[1] // 2
+    x0, x1 = x[:, :half], x[:, half:]
+    m = _coupling_mean(params, x0, x_mask, g)
+    return torch.cat([x0, (m + x1) * x_mask], dim=1)
+
+
 def residual_coupling_layer_reverse(
     params: Params,
     x: torch.Tensor,
@@ -67,10 +94,24 @@ def residual_coupling_layer_reverse(
     """Mean-only affine coupling, inverse: x1 <- x1 - m(x0)."""
     half = x.shape[1] // 2
     x0, x1 = x[:, :half], x[:, half:]
-    h = conv1d(x0, params["pre"]) * x_mask
-    h = wavenet(params["enc"], h, x_mask, g=g)
-    m = conv1d(h, params["post"]) * x_mask
+    m = _coupling_mean(params, x0, x_mask, g)
     return torch.cat([x0, (x1 - m) * x_mask], dim=1)
+
+
+def residual_coupling_block(
+    params: Params,
+    x: torch.Tensor,
+    x_mask: torch.Tensor,
+    g: typing.Optional[torch.Tensor] = None,
+    *,
+    n_flows: int = N_COUPLING,
+) -> torch.Tensor:
+    """The full flow forward: [coupling, flip] for couplings at
+    ``flows.{0,2,4,6}``."""
+    for i in range(n_flows):
+        x = residual_coupling_layer(params["flows"][str(2 * i)], x, x_mask, g=g)
+        x = torch.flip(x, dims=[1])
+    return x
 
 
 def residual_coupling_block_reverse(

@@ -6,8 +6,11 @@ Counterpart of ``mimic3_tpu/models/vits/layers.py``.  Conventions:
 - masks: ``[B, 1, T]`` float (1.0 = valid),
 - conv weights: ``[Cout, Cin/groups, K]`` (torch ``Conv1d``),
 - transposed-conv weights: ``[Cin, Cout, K]`` (torch ``ConvTranspose1d``),
-- parameters live in nested dicts keyed by torch-style module names, with
-  weight norm already folded (``runtime/convert.py``).
+- parameters live in nested dicts keyed by torch-style module names.
+  Synthesis weights arrive with weight norm folded (``runtime/convert.py``);
+  training weights keep the ``weight_v``/``weight_g`` pair, resolved at
+  every call by :func:`conv_weight` so the gradient reaches ``v`` and
+  ``g``.
 """
 
 from __future__ import annotations
@@ -20,6 +23,23 @@ import torch.nn.functional as F
 Params = typing.Dict[str, typing.Any]
 
 LRELU_SLOPE = 0.1
+
+
+def conv_weight(p: Params, out_dim: int = 0) -> torch.Tensor:
+    """Resolve a conv's weight, folding weight norm when present.
+
+    weight-norm: ``w = g * v / ||v||`` with the norm over every axis but
+    the output channel ``out_dim``: dim 0 of a conv's ``[Cout, Cin, K]``
+    (and of a 2-D conv's ``[Cout, Cin, kh, kw]``), dim 1 of a transposed
+    conv's ``[Cin, Cout, K]``.  ``g`` is ``[Cout, 1, 1]`` (``[1, Cout,
+    1]`` transposed), broadcast against ``v``.
+    """
+    if "weight" in p:
+        return p["weight"]
+    v = p["weight_v"]
+    dims = tuple(d for d in range(v.dim()) if d != out_dim)
+    norm = v.square().sum(dim=dims, keepdim=True).sqrt()
+    return p["weight_g"] * v / norm
 
 
 def conv1d(
@@ -38,7 +58,7 @@ def conv1d(
     bias = p.get("bias")
     return F.conv1d(
         x,
-        p["weight"].to(x.dtype),
+        conv_weight(p).to(x.dtype),
         None if bias is None else bias.to(x.dtype),
         stride=stride,
         padding=padding,
@@ -62,7 +82,7 @@ def conv_transpose1d(
     bias = p.get("bias")
     return F.conv_transpose1d(
         x,
-        p["weight"].to(x.dtype),
+        conv_weight(p, out_dim=1).to(x.dtype),
         None if bias is None else bias.to(x.dtype),
         stride=stride,
         padding=padding,

@@ -190,7 +190,9 @@ class _Init:
     def _weight(self, weight: torch.Tensor, weight_norm: bool) -> Params:
         if not weight_norm:
             return {"weight": weight}
-        norm = weight.square().sum(dim=(0, 1), keepdim=True).sqrt()
+        # the norm over every axis but the output channel (the last)
+        dims = tuple(range(weight.dim() - 1))
+        norm = weight.square().sum(dim=dims, keepdim=True).sqrt()
         return {"weight_v": weight, "weight_g": norm}
 
     def conv(
@@ -224,6 +226,13 @@ class _Init:
     def conv_transpose(self, cin: int, cout: int, k: int) -> Params:
         p = self._weight(self.normal((k, cin, cout), 0.01), True)
         p["bias"] = self.uniform((cout,), 1.0 / math.sqrt(cin * k))
+        return p
+
+    def conv2d(self, cin: int, cout: int, kh: int, kw: int) -> Params:
+        """Weight-normed 2-D conv, HWIO ``[kh, kw, Cin, Cout]``."""
+        bound = 1.0 / math.sqrt(cin * kh * kw)
+        p = self._weight(self.uniform((kh, kw, cin, cout), bound), True)
+        p["bias"] = self.uniform((cout,), bound)
         return p
 
     @staticmethod
@@ -327,24 +336,33 @@ def _init_encoder(ini: _Init, hp: VitsHyperparams) -> Params:
     return p
 
 
+def _init_wavenet(
+    ini: _Init, hidden: int, kernel_size: int, n_layers: int, gin_channels: int
+) -> Params:
+    wn: Params = {"in_layers": {}, "res_skip_layers": {}}
+    for j in range(n_layers):
+        out_ch = 2 * hidden if j < n_layers - 1 else hidden
+        wn["in_layers"][str(j)] = ini.conv(
+            hidden, 2 * hidden, kernel_size, weight_norm=True
+        )
+        wn["res_skip_layers"][str(j)] = ini.conv(
+            hidden, out_ch, 1, weight_norm=True
+        )
+    if gin_channels > 0:
+        wn["cond_layer"] = ini.conv(
+            gin_channels, 2 * hidden * n_layers, 1, weight_norm=True
+        )
+    return wn
+
+
 def _init_flow(ini: _Init, hp: VitsHyperparams) -> Params:
     half = hp.inter_channels // 2
     h = hp.hidden_channels
     flows: Params = {}
     for i in range(flw.N_COUPLING):
-        wn: Params = {"in_layers": {}, "res_skip_layers": {}}
-        for j in range(flw.WN_LAYERS):
-            out_ch = 2 * h if j < flw.WN_LAYERS - 1 else h
-            wn["in_layers"][str(j)] = ini.conv(
-                h, 2 * h, flw.WN_KERNEL, weight_norm=True
-            )
-            wn["res_skip_layers"][str(j)] = ini.conv(
-                h, out_ch, 1, weight_norm=True
-            )
-        if hp.gin_channels > 0:
-            wn["cond_layer"] = ini.conv(
-                hp.gin_channels, 2 * h * flw.WN_LAYERS, 1, weight_norm=True
-            )
+        wn = _init_wavenet(
+            ini, h, flw.WN_KERNEL, flw.WN_LAYERS, hp.gin_channels
+        )
         flows[str(2 * i)] = {
             "pre": ini.conv(half, h, 1),
             "enc": wn,

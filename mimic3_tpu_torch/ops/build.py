@@ -6,7 +6,8 @@ by a hash of the source and of every header it includes from ``csrc/``,
 and binds it with ``ctypes``.  The library has
 a plain C interface, so no PyTorch header is compiled.  Next to each
 library a ``.log`` keeps what ``ptxas -v`` printed (registers, shared
-memory and spills per kernel).
+memory and spills per kernel).  :func:`refuse_autograd` is the launchers'
+shared guard against recording a launch in an autograd graph.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import shutil
 import subprocess
 import typing
 from pathlib import Path
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "mimic3_tpu_torch"
@@ -82,3 +85,32 @@ def compile_library(source: Path, out: Path) -> None:
     if proc.returncode != 0:
         raise RuntimeError(f"building {source.name} failed:\n{proc.stderr}")
     os.replace(tmp, out)
+
+
+def refuse_autograd(name: str, *tensors_or_trees) -> None:
+    """Raise when autograd would record through a kernel launch.
+
+    A kernel writes through ``ctypes`` into a preallocated output, which
+    autograd takes for a constant: a gradient would be cut without a
+    word.  So with grad mode on, an input or weight (a tensor, or the
+    tensors of a parameter dict or list of them) that requires grad is
+    refused; train with the plain path (``stage_max_channels=0``).
+    """
+    if not torch.is_grad_enabled():
+        return
+
+    def leaves(obj):
+        if isinstance(obj, torch.Tensor):
+            yield obj
+        elif isinstance(obj, dict):
+            for v in obj.values():
+                yield from leaves(v)
+        elif isinstance(obj, (list, tuple)):
+            for v in obj:
+                yield from leaves(v)
+
+    if any(t.requires_grad for obj in tensors_or_trees for t in leaves(obj)):
+        raise RuntimeError(
+            f"{name}: an input or weight requires grad, and the kernel "
+            "launch would cut the gradient; use the plain path to train"
+        )

@@ -292,6 +292,7 @@ def fused_resblock_subblock(
         return resblock_subblock_plain(
             x, w1, b1, w2, b2, kernel_size=kernel_size, dilation=dilation
         )
+    build.refuse_autograd("fused_resblock_subblock", x, w1, b1, w2, b2)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):

@@ -424,6 +424,9 @@ def hifigan_stage_fused(
         return hifigan_stage_plain(
             resblock_params, x, kernel_sizes, dilations, **kwargs
         )
+    build.refuse_autograd(
+        "hifigan_stage_fused", x, resblock_params, ups_params, post_params
+    )
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if weights is None:

@@ -22,7 +22,9 @@ omits, come from the port's own
 JAX initializer.  ``python -m mimic3_tpu_torch.runtime.convert
 <voice_dir>`` (``mimic3-torch-convert``) is the CLI.
 
-:func:`to_torch_params` then inverts the layout map for the session:
+:func:`to_torch_params` then inverts the layout map for the session
+(:func:`to_torch_train_params` for training keeps weight norm unfolded;
+:func:`to_jax_layout` maps port tensors back):
 
 - conv weights ``[K, Cin/g, Cout]`` -> torch ``[Cout, Cin/g, K]``,
 - transposed convs (``ups.*``) ``[K, Cin, Cout]`` -> torch ``[Cin, Cout, K]``,
@@ -184,14 +186,28 @@ def fold_weight_norm(weight_g: np.ndarray, weight_v: np.ndarray) -> np.ndarray:
     return np.asarray(weight_g, np.float32) * v / norm
 
 
+def _layout_axes(name: str, ndim: int) -> typing.Optional[typing.Tuple[int, ...]]:
+    """The permutation that takes a conv weight (``weight``, or a
+    weight-norm ``weight_v``/``weight_g``) at dotted path ``name`` from the
+    JAX layout to torch's; None for any other leaf."""
+    if name.split(".")[-1] not in ("weight", "weight_v", "weight_g"):
+        return None
+    if ndim == 3:
+        if _TRANSPOSED_RE.search(name):
+            return (1, 2, 0)  # [K,Cin,Cout] -> [Cin,Cout,K]
+        return (2, 1, 0)  # [K,Cin,Cout] -> [Cout,Cin,K]
+    if ndim == 4:
+        return (3, 2, 0, 1)  # HWIO [kh,kw,Cin,Cout] -> [Cout,Cin,kh,kw]
+    return None
+
+
 def convert_leaf(name: str, arr: np.ndarray) -> np.ndarray:
     """One JAX-layout array (dotted module path ``name``) -> torch layout."""
     arr = np.asarray(arr, np.float32)
-    if name.split(".")[-1] == "weight" and arr.ndim == 3:
-        if _TRANSPOSED_RE.search(name):
-            return arr.transpose(1, 2, 0)  # [K,Cin,Cout] -> [Cin,Cout,K]
-        return arr.transpose(2, 1, 0)  # [K,Cin,Cout] -> [Cout,Cin,K]
-    return arr
+    axes = _layout_axes(name, arr.ndim)
+    # C order: torch.tensor keeps a transposed array's strides, and a
+    # strided weight costs every convolution a copy
+    return arr if axes is None else np.ascontiguousarray(arr.transpose(axes))
 
 
 def to_torch_params(
@@ -214,6 +230,51 @@ def to_torch_params(
             out[key] = torch.tensor(
                 convert_leaf(path, value), device=device
             )
+    return out
+
+
+def to_torch_train_params(
+    tree: Pytree,
+    device: typing.Union[str, torch.device, None] = None,
+    prefix: str = "",
+) -> Pytree:
+    """Training variant of :func:`to_torch_params`: weight norm stays
+    unfolded, because the optimizer updates ``v`` and ``g``, not ``W``.
+
+    ``weight_v`` takes the layout of ``weight``; ``weight_g`` the same
+    permutation (``[1, 1, Cout]`` -> ``[Cout, 1, 1]``, transposed convs
+    ``[1, Cout, 1]``; a 2-D conv's ``[1, 1, 1, Cout]`` -> ``[Cout, 1, 1,
+    1]``).  Leaves may be numpy arrays or CPU tensors.
+    """
+    out: Pytree = {}
+    for key, value in tree.items():
+        path = f"{prefix}.{key}" if prefix else key
+        if isinstance(value, dict):
+            out[key] = to_torch_train_params(value, device, path)
+        else:
+            out[key] = torch.tensor(
+                convert_leaf(path, np.asarray(value)), device=device
+            )
+    return out
+
+
+def to_jax_layout(tree: Pytree, prefix: str = "") -> Pytree:
+    """Inverse of :func:`to_torch_train_params` (and, for folded weights,
+    of :func:`to_torch_params`): port tensors -> numpy arrays in the JAX
+    package's layout, as ``generator.npz`` and the reference store them."""
+    out: Pytree = {}
+    for key, value in tree.items():
+        path = f"{prefix}.{key}" if prefix else key
+        if isinstance(value, dict):
+            out[key] = to_jax_layout(value, path)
+            continue
+        arr = value.detach().float().cpu().numpy()
+        axes = _layout_axes(path, arr.ndim)
+        # a copy: a CPU tensor's numpy view would follow later updates
+        out[key] = np.array(
+            arr if axes is None else arr.transpose(np.argsort(axes)),
+            order="C",
+        )
     return out
 
 

@@ -62,6 +62,8 @@ def test_every_tensor_loads(tmp_path, n_speakers):
         if name.endswith(".weight_g"):
             continue  # folded with its weight_v
         port_name, want = _expected(name, flat)
+        # C order: a strided weight costs every convolution a copy
+        assert _lookup(port, port_name).is_contiguous(), port_name
         got = _lookup(port, port_name).numpy()
         assert got.shape == want.shape, port_name
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)

@@ -1,8 +1,9 @@
 """The port stands alone: no module of ``mimic3_tpu_torch``, no
 ``chip_smoke.py`` and no ``tests/test_torch_server_thread.py`` (which
-``chip_smoke.py`` imports) imports JAX or the JAX package ``mimic3_tpu``,
-at module level or inside a function.  Parsed with ``ast``, so a lazy
-import is caught too.
+``chip_smoke.py`` imports) imports JAX, the JAX training libraries
+(``optax``, ``orbax``, ``flax``) or the JAX package ``mimic3_tpu``, at
+module level or inside a function.  Parsed with ``ast``, so a lazy import
+is caught too.
 """
 
 import ast
@@ -11,7 +12,7 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "mimic3_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "flax", "mimic3_tpu")
 
 
 def _sources():
@@ -67,3 +68,13 @@ def test_the_check_sees_lazy_imports():
     roots = [root for _, root in _imported_roots(ast.parse(code))]
     assert roots.count("mimic3_tpu") == 1 and roots.count("jax") == 1
     assert "importlib" in roots
+
+
+@pytest.mark.parametrize("module", ["optax", "orbax.checkpoint", "flax"])
+def test_the_jax_training_libraries_are_forbidden(module):
+    """The reference trains with optax and checkpoints with orbax; the
+    port's trainer uses torch.optim and torch.save."""
+    code = f"def f():\n    import {module}\n"
+    roots = [root for _, root in _imported_roots(ast.parse(code))]
+    assert roots == [module.split(".")[0]]
+    assert roots[0] in FORBIDDEN
