@@ -28,7 +28,13 @@ and read just after:
 - training: ``mimic3-torch-train`` on the full-width voice at batch 16
   (step times, memory, busy share, a breakdown), the card against the CPU
   on one step, no kernel launched while training, then the exported
-  ``generator.npz`` served on the card.
+  ``generator.npz`` served on the card;
+- data parallel: a session over every visible card, or over two replicas
+  of the one card, against the single-device session (the stage kernel
+  launched per shard), a dp above the visible cards refused, and
+  ``mimic3-torch-train`` in as many ranks under ``torch.distributed.run``
+  against the one-process run's first 3 steps, with the ranks'
+  parameters compared after them.
 
     python3 chip_smoke.py
 
@@ -1370,7 +1376,224 @@ def train_path(root: Path, card_line: str):
         f"decoder): WAV {wav.size} samples, {n_serve} stage launches")
     if n_serve < 1:
         raise AssertionError("serving the trained voice launched no stage")
-    return n_train, n_serve
+    return n_train, n_serve, clock.metrics
+
+
+# ---------------------------------------------------------------------------
+# data parallel
+# ---------------------------------------------------------------------------
+
+DP_TEXTS = BATCH_TEXTS + [
+    "Rainbows can be full circles.",
+    "However, the observer normally sees only an arc.",
+    "The arc is formed by illuminated droplets above the ground.",
+    "It is centred on a line from the sun to the eye of the observer.",
+]
+DP_TRAIN_STEPS = 3
+# the data-parallel run's losses against the one-process run's: step 1
+# (the forward pass, the global normalizers and draws), then steps 2-3,
+# which follow the all-reduced updates.  The trainer logs 7 significant
+# digits; on an H100 steps 2-3 agreed within 3.7e-07 (PERF.md), and
+# the later bar is set about 27x above that reading
+DP_STEP1_RTOL = 1e-4
+DP_LATER_RTOL = 1e-5
+
+
+def run_group(argv, timeout):
+    """Run ``argv`` in a session of its own; on a timeout, kill the whole
+    group (the launcher and its ranks).  Returns (returncode, output)."""
+    proc = subprocess.Popen(
+        argv, cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True,
+    )
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, _ = proc.communicate()
+        raise AssertionError(f"{argv[:6]} timed out:\n{out[-3000:]}")
+    return proc.returncode, out
+
+
+def dp_serving(root, voice_dir, card_line, devices):
+    """A session over ``devices`` (f32, no speculation, so every call runs
+    one decode per shard) against one device: audio within 2e-5 for 8
+    sequences and a partial batch of 5, the stage kernel launched once per
+    shard, bf16 corr > 0.999, and the wall time per call of each."""
+    from mimic3_tpu_torch.config import TrainingConfig
+    from mimic3_tpu_torch.ops import stage
+    from mimic3_tpu_torch.parallel import make_mesh
+    from mimic3_tpu_torch.runtime.convert import load_pytree_npz
+    from mimic3_tpu_torch.runtime.session import TorchVitsSession
+    from mimic3_tpu_torch.runtime.voice import load_from_directory
+
+    dp_dir = root / "en_US" / "dp_low"
+    if not dp_dir.exists():
+        voice_copy(voice_dir, dp_dir, speculative_decode=False)
+    config = TrainingConfig.load_path(dp_dir / "config.json")
+    params = load_pytree_npz(dp_dir / "generator.npz")
+    voice = load_from_directory(dp_dir, share_sessions=False,
+                                deterministic=True)
+    seqs = [phoneme_ids(voice, t) for t in DP_TEXTS]
+    mesh = make_mesh(devices=devices)
+    n = len(devices)
+    name = f"dp{n}"
+    where = (f"{n} replicas sharing one card: the overhead of sharding, "
+             "not scaling" if len(set(devices)) == 1 else f"{n} cards")
+    sessions = {
+        "single": voice.session,
+        name: TorchVitsSession(config, params, deterministic=True,
+                               mesh=mesh),
+    }
+    out, per_call = {}, {}
+    for key, session in sessions.items():
+        before = stage.launches
+        out[key] = (session.synthesize_ids_batch(seqs, seed=3),
+                    session.synthesize_ids_batch(seqs[:5], seed=3))
+        per_call[key] = (stage.launches - before) / 2
+    err = max(float(np.abs(a - b).max()) if a.shape == b.shape else np.inf
+              for full, part in zip(out[name], out["single"])
+              for a, b in zip(full, part))
+    say("dp", f"{name} over {[str(d) for d in devices]} (f32, "
+        f"deterministic) against one device: 8 sequences, then a partial "
+        f"batch of 5: max abs err {err:.3e} (bar 2e-5); stage launches "
+        f"per call: {name} {per_call[name]:g}, single "
+        f"{per_call['single']:g}")
+    if not err <= 2e-5:
+        raise AssertionError(f"{name} audio disagrees with one device")
+    if not (per_call["single"] >= 1
+            and per_call[name] == n * per_call["single"]):
+        raise AssertionError("the stage kernel did not run once per shard")
+    bf16 = [
+        TorchVitsSession(config, params, device="cuda:0"),
+        TorchVitsSession(config, params, mesh=mesh),
+    ]
+    got = [s.synthesize_ids_batch(seqs, seed=5) for s in bf16]
+    c_bf16 = min(corr(a, b) for a, b in zip(*got))
+    say("dp", f"bf16 decoder, {name} against one device: min corr "
+        f"{c_bf16:.7f} (bar > 0.999)")
+    if not c_bf16 > 0.999:
+        raise AssertionError(f"bf16 {name} audio strays from one device")
+    for key, session in sessions.items():
+        on = "one device" if key == "single" else where
+        for rows in (8, 16):
+            wall, rate = time_session(session, (seqs * 2)[:rows], 5)
+            say("time", f"{key} ({on}), {rows} sequences per call, f32: "
+                f"{wall * 1000:.1f} ms per call, {rate:.1f} audio-s/s "
+                f"({card_line})")
+    return dp_dir
+
+
+def dp_training(root, card_line, nproc, train_steps, backend):
+    """``mimic3-torch-train`` in ``nproc`` ranks under
+    ``torch.distributed.run`` from the weights and data ``[train]`` starts
+    from, ``DP_TRAIN_STEPS`` steps at the global batch ``TRAIN_BATCH``:
+    the ``backend`` it must choose, each step's losses against the
+    one-process run's ``train_steps`` (step 1 within ``DP_STEP1_RTOL``,
+    the later ones within ``DP_LATER_RTOL``), the ranks' parameter digests
+    equal."""
+    import ast
+
+    from mimic3_tpu_torch.runtime.testvoice import create_test_voice
+
+    train_dir = create_test_voice(
+        root / "en_US" / f"dp{nproc}_train_low", seed=1234)
+    logs = root / f"dp{nproc}_train_logs"
+    t0 = time.perf_counter()
+    rc, text = run_group([
+        sys.executable, "-m", "torch.distributed.run", "--standalone",
+        "--nproc_per_node", str(nproc), "--redirects", "3", "--log-dir",
+        str(logs), "-m", "mimic3_tpu_torch.train_cli", str(train_dir),
+        "--metadata", str(root / "train_data" / "metadata.csv"),
+        "--audio-dir", str(root / "train_data" / "wavs"), "--batch-size",
+        str(TRAIN_BATCH), "--steps", str(DP_TRAIN_STEPS), "--log-every",
+        "1", "--checkpoint-dir", str(root / f"dp{nproc}_train_ckpt"),
+    ], timeout=600)
+    wall = time.perf_counter() - t0
+    ranks = {p.parent.name: p.read_text()
+             for p in logs.rglob("stderr.log")}
+    if rc != 0 or set(ranks) != {str(r) for r in range(nproc)}:
+        raise AssertionError(f"{nproc}-rank training failed (rc {rc}):\n"
+                             + text[-2000:] + "".join(
+                                 t[-2000:] for t in ranks.values()))
+    steps, digests, backends = {}, {}, set()
+    for rank, log in ranks.items():
+        for line in log.splitlines():
+            m = re.search(r"step (\d+) (\{.*\}) \(([\d.]+) steps/s\)", line)
+            if m:
+                steps[(rank, int(m[1]))] = (ast.literal_eval(m[2]),
+                                            float(m[3]))
+            m = re.search(r"parameter digest \(rank \d+\): (\w+)", line)
+            if m:
+                digests[rank] = m[1]
+            m = re.search(r"backend (\w+) for", line)
+            if m:
+                backends.add(m[1])
+    n = DP_TRAIN_STEPS
+    rel = [max(abs(steps[("0", i)][0][k] - want[k]) / abs(want[k])
+               for k in want)
+           for i, want in enumerate(train_steps[:n], 1)]
+    # the trainer logs its rate since the first step began: steps 2..n
+    # took n / rate_n - 1 / rate_1 seconds
+    step_ms = (n / steps[("0", n)][1] - 1 / steps[("0", 1)][1]) / (n - 1)
+    say("dp", f"mimic3-torch-train, {nproc} ranks, backend "
+        f"{'/'.join(sorted(backends))}, global batch {TRAIN_BATCH} x 8192 "
+        f"samples, {n} steps in {wall:.1f} s (launch, init and data "
+        f"included); steps 2-{n}: {step_ms * 1000:.1f} ms per step "
+        f"({card_line})")
+    say("dp", f"step 1 losses, {nproc} ranks: {steps[('0', 1)][0]}; one "
+        f"process: {train_steps[0]}")
+    say("dp", f"losses, {nproc} ranks against one process, max rel diff "
+        f"per step 1-{n}: {', '.join(f'{r:.3e}' for r in rel)} (bars: step "
+        f"1 {DP_STEP1_RTOL:g}, later {DP_LATER_RTOL:g})")
+    say("dp", f"parameter digests after {n} steps: " + ", ".join(
+        f"rank {r} {d[:16]}" for r, d in sorted(digests.items())))
+    if any(steps[(r, i)][0] != steps[("0", i)][0]
+           for r in ranks for i in range(1, n + 1)):
+        raise AssertionError("the ranks logged different losses")
+    if not (rel[0] <= DP_STEP1_RTOL
+            and all(r <= DP_LATER_RTOL for r in rel[1:])):
+        raise AssertionError(f"{nproc}-rank losses disagree with one "
+                             "process")
+    if len(digests) != nproc or len(set(digests.values())) != 1:
+        raise AssertionError("the ranks' parameters differ")
+    if backends != {backend}:
+        raise AssertionError(f"expected backend {backend}, got {backends}")
+
+
+def dp_path(root, voice_dir, card_line, train_steps):
+    """Data parallel (phase 16) over every visible card, or over two
+    replicas of the one card: serving against one device, ``dp=-1`` taking
+    every card, a dp above the visible cards refused, then as many
+    training ranks (``nccl`` with a card each, ``gloo`` when they share
+    one).  Returns the phase's stage launches."""
+    from mimic3_tpu_torch.ops import stage
+    from mimic3_tpu_torch.parallel.distributed import backend_for
+    from mimic3_tpu_torch.runtime.voice import load_from_directory
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    devices = ([f"cuda:{i}" for i in range(cards)] if cards > 1
+               else ["cuda:0", "cuda:0"])
+    stage.launches = 0
+    dp_dir = dp_serving(root, voice_dir, card_line, devices)
+    every = load_from_directory(dp_dir, share_sessions=False, dp=-1)
+    say("dp", f"dp=-1 serves over {every.session.dp} card(s)")
+    if every.session.dp != cards:
+        raise AssertionError("dp=-1 did not take every card")
+    try:
+        load_from_directory(dp_dir, share_sessions=False, dp=cards + 1)
+    except RuntimeError as refusal:
+        say("dp", f"dp={cards + 1} with {cards} card(s) visible refused: "
+            f"{refusal}")
+    else:
+        raise AssertionError(f"dp={cards + 1} was not refused")
+    nproc = len(devices)
+    dp_training(root, card_line, nproc, train_steps,
+                backend_for(torch.device("cuda", 0), local_world=nproc))
+    say("dp", f"phase wall {time.perf_counter() - t_phase:.1f} s")
+    return stage.launches
 
 
 def main() -> int:
@@ -1486,8 +1709,9 @@ def main() -> int:
         launches["onnx"] = onnx_path(root)
         launches["mbistft"] = mbistft_path(root, voice_dir, card_line)
         launches["speculate"] = speculate_path(root, voice_dir, card_line)
-        launches["train"], launches["train_serve"] = train_path(
-            root, card_line)
+        launches["train"], launches["train_serve"], train_steps = (
+            train_path(root, card_line))
+        launches["dp"] = dp_path(root, voice_dir, card_line, train_steps)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

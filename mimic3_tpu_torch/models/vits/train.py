@@ -24,6 +24,18 @@ Randomness: JAX's threefry bits cannot be reproduced, so every draw the
 reference makes from its key (the posterior sample, the segment starts,
 the duration posterior's ``e_q``) can be injected (:class:`TrainNoise`);
 what is not injected comes from a ``torch.Generator``.
+
+Data parallel (``train_step(..., shard=Shard(rank, world))``, the
+reference's step under a dp mesh): each rank gets its rows of the global
+batch and the step equals the single-device step on the global batch.
+The losses normalized by a sum over the batch (KL by the valid frames,
+the duration loss by the valid phonemes) take the global sums; each rank
+draws the global batch's noise from the step's generator and keeps its
+rows; each tree's gradients are summed over the ranks in one collective
+before clipping, so every rank steps identically; the logged losses are
+the global ones.  The mean losses (mel, adversarial, feature matching)
+average over equal shards, which the trainer guarantees by rounding the
+global batch to a multiple of the world size.
 """
 
 from __future__ import annotations
@@ -37,6 +49,8 @@ import torch
 
 from ...config import TrainingConfig
 from ...ops.stft import mel_spectrogram, spectrogram
+from ...parallel import all_reduce_sum
+from ...parallel.mesh import shard_rows
 from ...runtime.session import full_f32_convolutions
 from . import duration as dur
 from . import flow as flw
@@ -80,6 +94,19 @@ class TrainNoise:
     starts: typing.Optional[torch.Tensor] = None
 
 
+@dataclass(frozen=True)
+class Shard:
+    """This rank's part of a data-parallel step: the batch it gets is rows
+    ``[rank * b, (rank + 1) * b)`` of a global batch of ``world * b``."""
+
+    rank: int
+    world: int
+
+    def rows(self, batch: int) -> slice:
+        """This rank's rows of a global batch of ``batch`` rows."""
+        return shard_rows(self.rank, self.world, batch)
+
+
 def init_training_params(
     seed: int, config: TrainingConfig
 ) -> typing.Tuple[Params, Params]:
@@ -108,13 +135,18 @@ def kl_loss(
     m_p: torch.Tensor,
     logs_p: torch.Tensor,
     y_mask: torch.Tensor,
+    frames: typing.Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """KL(q(z|y) || p(z|text)) after the flow, per the VITS objective,
-    normalized by the number of valid frames (not frames x channels)."""
+    normalized by the number of valid frames (not frames x channels):
+    ``frames``, the global batch's count on a data-parallel shard, else
+    ``sum(y_mask)``."""
     z_p = z_p.float()
     kl = logs_p - logs_q - 0.5
     kl = kl + 0.5 * (z_p - m_p).square() * torch.exp(-2.0 * logs_p)
-    return torch.sum(kl * y_mask) / torch.clamp(torch.sum(y_mask), min=1.0)
+    if frames is None:
+        frames = torch.sum(y_mask)
+    return torch.sum(kl * y_mask) / torch.clamp(frames, min=1.0)
 
 
 def feature_matching_loss(
@@ -166,14 +198,22 @@ def random_segments(
     """
     b, c, t = values.shape
     if starts is None:
-        max_start = torch.clamp(lengths - segment_frames, min=0)
         u = torch.rand(b, generator=generator, device=values.device)
-        starts = (u * (max_start + 1).float()).long()
-        starts = torch.minimum(starts, max_start)
+        starts = segment_starts(u, lengths, segment_frames)
     starts = starts.to(values.device).long()
     idx = starts[:, None] + torch.arange(segment_frames, device=values.device)
     idx = torch.clamp(idx, max=t - 1)
     return torch.gather(values, 2, idx[:, None, :].expand(b, c, -1)), starts
+
+
+def segment_starts(
+    u: torch.Tensor, lengths: torch.Tensor, segment_frames: int
+) -> torch.Tensor:
+    """Window starts [B] from uniform draws ``u`` [B]: uniform over the
+    starts that fit the valid frames (0 for short examples)."""
+    max_start = torch.clamp(lengths - segment_frames, min=0)
+    starts = (u * (max_start + 1).float()).long()
+    return torch.minimum(starts, max_start)
 
 
 def slice_audio_segments(
@@ -208,6 +248,48 @@ def _no_mark(name: str) -> None:
     pass
 
 
+def shard_draws(
+    shard: Shard,
+    noise: typing.Optional[TrainNoise],
+    generator: typing.Optional[torch.Generator],
+    *,
+    batch: int,
+    t_spec: int,
+    t_text: int,
+    inter: int,
+    use_sdp: bool,
+    spec_lengths: torch.Tensor,
+    segment_frames: int,
+) -> TrainNoise:
+    """This rank's rows of the draws the one-device step makes for the
+    whole global batch, in its order: the posterior sample, the duration
+    posterior's ``e_q`` (with SDP), the segment starts' uniforms.  An
+    injected field of ``noise`` is the global batch's; its rows are taken.
+    ``batch`` is this rank's rows, ``spec_lengths`` theirs."""
+    noise = noise or TrainNoise()
+    n = batch * shard.world
+    rows = shard.rows(n)
+    device = spec_lengths.device
+    posterior, duration = noise.posterior, noise.duration
+    if posterior is None:
+        posterior = torch.randn(
+            n, inter, t_spec, generator=generator, device=device
+        )
+    if duration is None and use_sdp:
+        duration = torch.randn(n, 2, t_text, generator=generator,
+                               device=device)
+    if noise.starts is None:
+        u = torch.rand(n, generator=generator, device=device)[rows]
+        starts = segment_starts(u, spec_lengths, segment_frames)
+    else:
+        starts = noise.starts[rows]
+    return TrainNoise(
+        posterior=posterior[rows].to(device),
+        duration=None if duration is None else duration[rows].to(device),
+        starts=starts.to(device),
+    )
+
+
 def generator_forward(
     model: VitsModel,
     config: TrainingConfig,
@@ -217,13 +299,16 @@ def generator_forward(
     noise: typing.Optional[TrainNoise] = None,
     generator: typing.Optional[torch.Generator] = None,
     mark: typing.Callable[[str], None] = _no_mark,
+    shard: typing.Optional[Shard] = None,
 ) -> typing.Dict[str, torch.Tensor]:
     """VITS training forward pass -> losses + fake/real audio segments.
 
     ``mark(name)`` is called where the part ``name`` of the work begins
     (``"mas"``, then ``"g_forward"`` again), for a caller timing them.
+    On a data-parallel ``shard``, ``batch`` is the rank's rows and
+    ``noise`` (if given) the global batch's draws; the duration and KL
+    losses are normalized by the global batch's valid phonemes and frames.
     """
-    noise = noise or TrainNoise()
     audio_cfg = config.audio
     hop = audio_cfg.hop_length
     segment_frames = config.segment_size // hop
@@ -242,6 +327,19 @@ def generator_forward(
         batch.audio, audio_cfg.filter_length, hop, audio_cfg.win_length
     )
     y_mask = sequence_mask(batch.spec_lengths, spec.shape[2])
+    if shard is not None:
+        noise = shard_draws(
+            shard, noise, generator, batch=ids.shape[0],
+            t_spec=spec.shape[2], t_text=ids.shape[1],
+            inter=config.model.inter_channels, use_sdp=model.hp.use_sdp,
+            spec_lengths=batch.spec_lengths, segment_frames=segment_frames,
+        )
+    noise = noise or TrainNoise()
+    phonemes = frames = None
+    if shard is not None:
+        phonemes, frames = all_reduce_sum(
+            [torch.stack([torch.sum(x_mask), torch.sum(y_mask)])]
+        )[0]
     z, m_q, logs_q = posterior_encoder(
         params["enc_q"], spec, y_mask, g=g, noise=noise.posterior,
         generator=generator,
@@ -266,18 +364,19 @@ def generator_forward(
             params["dp"], x, x_mask, w, g=g, noise=noise.duration,
             generator=generator,
         )
-        loss_dur = torch.sum(nll) / torch.clamp(torch.sum(x_mask), min=1.0)
+        loss_dur = torch.sum(nll)
     else:
         logw_hat = dur.duration_predictor(params["dp"], x, x_mask, g=g)
         logw = torch.log(w + 1e-6) * x_mask
-        loss_dur = torch.sum((logw_hat - logw).square()) / torch.clamp(
-            torch.sum(x_mask), min=1.0
-        )
+        loss_dur = torch.sum((logw_hat - logw).square())
+    if phonemes is None:
+        phonemes = torch.sum(x_mask)
+    loss_dur = loss_dur / torch.clamp(phonemes, min=1.0)
 
     # expand the prior to frames through the alignment
     m_p_f = torch.matmul(m_p, attn)  # [B, C, T_spec]
     logs_p_f = torch.matmul(logs_p, attn)
-    loss_kl = kl_loss(z_p, logs_q, m_p_f, logs_p_f, y_mask)
+    loss_kl = kl_loss(z_p, logs_q, m_p_f, logs_p_f, y_mask, frames)
 
     # decode a random segment
     z_seg, starts = random_segments(
@@ -410,10 +509,12 @@ def _update(
     grads: typing.Sequence[typing.Optional[torch.Tensor]],
     lr: float,
     grad_clip: typing.Optional[float],
+    shard: typing.Optional[Shard] = None,
 ) -> None:
     """Adam on ``leaves`` with ``grads`` (None = unused: a zero gradient,
-    which still moves a parameter by its moments as optax does).  The
-    gradients stay on each leaf's ``.grad``."""
+    which still moves a parameter by its moments as optax does), summed
+    over the ranks first on a data-parallel ``shard``.  The gradients stay
+    on each leaf's ``.grad``."""
     # each gradient in its parameter's strides (autograd may return other
     # strides, e.g. for a slice of a padded table), which keeps Adam's
     # multi-tensor kernels on their fast path
@@ -423,6 +524,8 @@ def _update(
         else torch.empty_like(t).copy_(g)
         for (_, t), g in zip(leaves, grads)
     ]
+    if shard is not None:
+        grads = all_reduce_sum(grads)
     if grad_clip:
         clip_by_global_norm(grads, grad_clip)
     for (_, t), g in zip(leaves, grads):
@@ -450,13 +553,15 @@ def make_train_step(
 ) -> typing.Callable:
     """Build the train step for a voice config.
 
-    ``train_step(state, batch, noise=None, generator=None)`` updates the
-    discriminators, then the generator (against the updated
+    ``train_step(state, batch, noise=None, generator=None, shard=None)``
+    updates the discriminators, then the generator (against the updated
     discriminators, as the reference), in place; returns ``(state,
-    metrics)`` with 0-dim tensors.  The generator forward runs once, with
-    gradients: the D step takes its output detached, since the D update
-    touches none of G's parameters.  ``mark(name)`` is called where each
-    part of the step begins: ``"g_forward"`` (the generator, and the
+    metrics)`` with 0-dim tensors.  With ``shard`` it is one rank's part of
+    the data-parallel step (module docstring): ``batch`` holds the rank's
+    rows, ``noise`` the global batch's draws.  The generator forward runs
+    once, with gradients: the D step takes its output detached, since the
+    D update touches none of G's parameters.  ``mark(name)`` is called
+    where each part of the step begins: ``"g_forward"`` (the generator, and the
     discriminators on its output for its loss), ``"mas"``, ``"d_step"``
     (the discriminators' losses and gradients), ``"g_backward"``,
     ``"optimizer"`` (either update), and ``"end"``.
@@ -471,13 +576,17 @@ def make_train_step(
         noise: typing.Optional[TrainNoise] = None,
         generator: typing.Optional[torch.Generator] = None,
         mark: typing.Callable[[str], None] = _no_mark,
+        shard: typing.Optional[Shard] = None,
     ) -> typing.Tuple[TrainState, typing.Dict[str, torch.Tensor]]:
         lr = learning_rate(config, state.step, steps_per_epoch)
+        # the mean losses' share of their global mean: 1 / world (a power
+        # of two scales exactly)
+        share = 1.0 if shard is None else 1.0 / shard.world
         with full_f32():
             mark("g_forward")
             out = generator_forward(
                 model, config, state.params, batch, noise=noise,
-                generator=generator, mark=mark,
+                generator=generator, mark=mark, shard=shard,
             )
             y_real = out["y_real"].detach()
 
@@ -489,11 +598,12 @@ def make_train_step(
             )
             loss_d = discriminator_adv_loss(real_logits, fake_logits)
             grads_d = torch.autograd.grad(
-                loss_d, [t for _, t in state.d_leaves], allow_unused=True
+                loss_d * share, [t for _, t in state.d_leaves],
+                allow_unused=True,
             )
             mark("optimizer")
             _update(state.opt_d, state.d_leaves, grads_d, lr,
-                    config.grad_clip)
+                    config.grad_clip, shard)
 
             # ---- generator update ----
             mark("g_forward")
@@ -504,24 +614,23 @@ def make_train_step(
             )
             loss_adv = generator_adv_loss(fake_logits)
             loss_fm = feature_matching_loss(fmaps_r, fmaps_f)
-            loss_g = (
-                out["loss_mel"] * config.c_mel
+            # this rank's part of the generator loss: the KL and duration
+            # terms are over the global normalizers already
+            objective = (
+                (out["loss_mel"] * config.c_mel + loss_adv + loss_fm) * share
                 + out["loss_kl"] * config.c_kl
                 + out["loss_dur"]
-                + loss_adv
-                + loss_fm
             )
             mark("g_backward")
             grads_g = torch.autograd.grad(
-                loss_g, [t for _, t in state.g_leaves], allow_unused=True
+                objective, [t for _, t in state.g_leaves], allow_unused=True
             )
             mark("optimizer")
             _update(state.opt_g, state.g_leaves, grads_g, lr,
-                    config.grad_clip)
+                    config.grad_clip, shard)
             mark("end")
         state.step += 1
         metrics = {
-            "loss_g": loss_g,
             "loss_mel": out["loss_mel"],
             "loss_kl": out["loss_kl"],
             "loss_dur": out["loss_dur"],
@@ -529,12 +638,28 @@ def make_train_step(
             "loss_fm": loss_fm,
             "loss_d": loss_d,
         }
-        return state, {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if shard is not None:
+            # the global values: sums of the ranks' shares
+            parts = torch.stack([
+                v if k in ("loss_kl", "loss_dur") else v * share
+                for k, v in metrics.items()
+            ])
+            metrics = dict(zip(metrics, all_reduce_sum([parts])[0]))
+        loss_g = (
+            metrics["loss_mel"] * config.c_mel
+            + metrics["loss_kl"] * config.c_kl
+            + metrics["loss_dur"]
+            + metrics["loss_adv"]
+            + metrics["loss_fm"]
+        )
+        return state, {"loss_g": loss_g, **metrics}
 
     return train_step
 
 
 __all__ = [
+    "Shard",
     "TrainBatch",
     "TrainNoise",
     "TrainState",

@@ -324,18 +324,23 @@ def fused_resblock_subblock(
         weights.w2.data_ptr(), weights.b2.data_ptr(),
     )
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if weights.mma:
-        rows, groups = pick_mma_config(c, kernel_size, dilation, t, batch)
-        err = lib.resblock_subblock_mma_launch(
-            *pointers, batch, c, t, kernel_size, dilation, rows, groups,
-            stream,
-        )
-    else:
-        tile = pick_tile(c, kernel_size, dilation, t)
-        err = lib.resblock_subblock_launch(
-            *pointers, batch, c, t, kernel_size, dilation, tile,
-            int(x.dtype == torch.bfloat16), stream,
-        )
+    # ctypes launches on the current device, and the kernels'
+    # cudaFuncSetAttribute applies to it alone: make it x's
+    with torch.cuda.device(x.device):
+        if weights.mma:
+            rows, groups = pick_mma_config(
+                c, kernel_size, dilation, t, batch
+            )
+            err = lib.resblock_subblock_mma_launch(
+                *pointers, batch, c, t, kernel_size, dilation, rows, groups,
+                stream,
+            )
+        else:
+            tile = pick_tile(c, kernel_size, dilation, t)
+            err = lib.resblock_subblock_launch(
+                *pointers, batch, c, t, kernel_size, dilation, tile,
+                int(x.dtype == torch.bfloat16), stream,
+            )
     if err != 0:
         raise RuntimeError(
             f"resblock_subblock kernel launch failed: cuda error {err}"

@@ -472,33 +472,39 @@ def hifigan_stage_fused(
 
     lib = build_library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if uses_mma(c, x.dtype):
-        if weights.fragments is None or weights.fragments.device != x.device:
-            raise ValueError("stage weights carry no MMA fragments here")
-        post_pad = (weights.post_kernel - 1) // 2 if weights.has_post else 0
-        rows = _pick_mma_rows(weights, t_out, batch)
-        err = lib.hifigan_stage_mma_launch(
-            x.data_ptr(), out.data_ptr(),
-            weights.w.data_ptr(), weights.b.data_ptr(),
-            weights.plan.data_ptr(), weights.fragments.data_ptr(),
-            batch, c, weights.in_channels, t_in, t_out,
-            weights.n_res, weights.n_steps,
-            weights.ups_kernel, weights.ups_stride, weights.ups_padding,
-            int(weights.has_post), post_pad, rows - 2 * post_pad,
-            weights.halo, max(k for k, _ in weights.convs), stream,
-        )
-    else:
-        tile = _pick_tile(weights)
-        err = lib.hifigan_stage_launch(
-            x.data_ptr(), out.data_ptr(),
-            weights.w.data_ptr(), weights.b.data_ptr(),
-            weights.plan.data_ptr(),
-            batch, c, weights.in_channels, t_in, t_out,
-            weights.n_res, weights.n_steps,
-            weights.ups_kernel, weights.ups_stride, weights.ups_padding,
-            int(weights.has_post), tile, weights.halo,
-            int(x.dtype == torch.bfloat16), stream,
-        )
+    # ctypes launches on the current device, and the kernels'
+    # cudaFuncSetAttribute applies to it alone: make it x's
+    with torch.cuda.device(x.device):
+        if uses_mma(c, x.dtype):
+            if (weights.fragments is None
+                    or weights.fragments.device != x.device):
+                raise ValueError("stage weights carry no MMA fragments here")
+            post_pad = (
+                (weights.post_kernel - 1) // 2 if weights.has_post else 0
+            )
+            rows = _pick_mma_rows(weights, t_out, batch)
+            err = lib.hifigan_stage_mma_launch(
+                x.data_ptr(), out.data_ptr(),
+                weights.w.data_ptr(), weights.b.data_ptr(),
+                weights.plan.data_ptr(), weights.fragments.data_ptr(),
+                batch, c, weights.in_channels, t_in, t_out,
+                weights.n_res, weights.n_steps,
+                weights.ups_kernel, weights.ups_stride, weights.ups_padding,
+                int(weights.has_post), post_pad, rows - 2 * post_pad,
+                weights.halo, max(k for k, _ in weights.convs), stream,
+            )
+        else:
+            tile = _pick_tile(weights)
+            err = lib.hifigan_stage_launch(
+                x.data_ptr(), out.data_ptr(),
+                weights.w.data_ptr(), weights.b.data_ptr(),
+                weights.plan.data_ptr(),
+                batch, c, weights.in_channels, t_in, t_out,
+                weights.n_res, weights.n_steps,
+                weights.ups_kernel, weights.ups_stride, weights.ups_padding,
+                int(weights.has_post), tile, weights.halo,
+                int(x.dtype == torch.bfloat16), stream,
+            )
     if err != 0:
         raise RuntimeError(f"hifigan_stage kernel launch failed: cuda error {err}")
     with _LAUNCHES_LOCK:  # several request and driver threads launch

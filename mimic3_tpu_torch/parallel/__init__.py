@@ -1,0 +1,18 @@
+"""Data parallelism on torch devices and ``torch.distributed`` (port of
+``mimic3_tpu/parallel``)."""
+
+from .distributed import (  # noqa: F401
+    all_gather_rows,
+    all_reduce_sum,
+    initialize_distributed,
+    make_global_mesh,
+    process_local_batch_slice,
+)
+from .mesh import (  # noqa: F401
+    Mesh,
+    batch_sharding,
+    make_mesh,
+    param_sharding,
+    shard_batch,
+    shard_params,
+)

@@ -1,0 +1,228 @@
+"""Device meshes and the data-parallel layout of params and batches.
+
+Port of ``mimic3_tpu/parallel/mesh.py``.  A :class:`Mesh` is a ``dp x tp``
+grid of ``torch.device``s, each held by one process (one process holds
+them all unless :func:`~.distributed.make_global_mesh` spans several):
+
+- **dp** (data parallel): the batch dimension of requests and training
+  examples.  Params are replicated, one copy per dp device, and each
+  device runs its own rows (``TorchVitsSession``'s decode, the train
+  step's shard).  VITS-low needs nothing else.
+- **tp** (tensor parallel): :data:`_TP_RULES` name the wide weights that
+  a tensor-parallel decoder would split, kept as data for scaled-up
+  configs; nothing in the port executes a ``tp > 1`` mesh yet
+  (``ROADMAP.md``).
+
+The device list, when none is given, is the visible cards ``cuda:0..n-1``
+(raising when fewer are visible) or, on the CPU, ``n`` replicas on the one
+CPU device, the counterpart of the reference's virtual CPU devices.  A
+list passed in may repeat a device: ``[cuda:0, cuda:0]`` runs two
+replicas on one card.
+"""
+
+from __future__ import annotations
+
+import typing
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+Params = typing.Dict[str, typing.Any]
+
+# param-path suffix -> the tensor axis ``tp`` shards.  The rules are the
+# reference's; the port keeps torch's layouts ([Cout, Cin, K] for convs,
+# [Cin, Cout, K] for the transposed ``ups``), so the sharded axis is not
+# the reference's (its convs are [K, Cin, Cout]): the wide output
+# channels of ffn conv_1 and of the upsamplers, the input channels of
+# ffn conv_2.
+_TP_RULES: typing.Tuple[typing.Tuple[str, int], ...] = (
+    ("ffn_layers/*/conv_1/weight", 0),
+    ("ffn_layers/*/conv_1/bias", 0),
+    ("ffn_layers/*/conv_2/weight", 1),
+    ("dec/ups/*/weight", 1),
+    ("dec/ups/*/bias", 0),
+)
+
+
+@dataclass(frozen=True, eq=False)
+class Mesh:
+    """A ``dp x tp`` grid of devices.
+
+    ``devices[i, j]`` is a ``torch.device``; ``processes[i, j]`` is the
+    rank of the process that holds it and ``process_index`` this
+    process's rank (all 0 in one process).
+    """
+
+    devices: np.ndarray
+    processes: np.ndarray
+    process_index: int = 0
+
+    @property
+    def shape(self) -> typing.Dict[str, int]:
+        dp, tp = self.devices.shape
+        return {"dp": int(dp), "tp": int(tp)}
+
+    @property
+    def multiprocess(self) -> bool:
+        return bool((self.processes != self.process_index).any())
+
+    def local_shards(self) -> typing.List[typing.Tuple[int, torch.device]]:
+        """(dp index, device) of the dp rows this process holds (column
+        0 of the tp axis), in dp order."""
+        return [
+            (i, self.devices[i, 0])
+            for i in range(self.devices.shape[0])
+            if self.processes[i, 0] == self.process_index
+        ]
+
+
+def _default_devices(
+    n: typing.Optional[int], platform: str = "cuda"
+) -> typing.List[torch.device]:
+    """``n`` devices of ``platform``: the visible cards ``cuda:0..n-1``
+    (every card when ``n`` is None), or ``n`` replicas of the CPU."""
+    if platform == "cpu":
+        return [torch.device("cpu")] * (1 if n is None else n)
+    if platform != "cuda":
+        raise ValueError(f"unsupported platform {platform!r}")
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    n = visible if n is None else n
+    if n < 1 or n > visible:
+        raise RuntimeError(
+            f"a mesh of {n} CUDA device(s) needs that many cards; "
+            f"{visible} visible (name the CPU to run replicas there)"
+        )
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def make_mesh(
+    n_devices: typing.Optional[int] = None,
+    dp: typing.Optional[int] = None,
+    tp: int = 1,
+    devices: typing.Optional[typing.Sequence[torch.device]] = None,
+    platform: str = "cuda",
+) -> Mesh:
+    """Create a ``(dp, tp)`` mesh over ``devices`` (default: see the
+    module docstring; on the CPU ``n_devices``, else ``dp * tp``)."""
+    if devices is None:
+        if n_devices is None and platform == "cpu" and dp is not None:
+            n_devices = dp * tp
+        devices = _default_devices(n_devices, platform)
+    devices = [torch.device(d) for d in devices]
+    if n_devices is not None:
+        devices = devices[:n_devices]
+    n = len(devices)
+    if dp is None:
+        dp = n // tp
+    if dp * tp != n or n == 0:
+        raise ValueError(f"dp({dp}) * tp({tp}) != devices({n})")
+    grid = np.empty((dp, tp), dtype=object)
+    for i, d in enumerate(devices):
+        grid[i // tp, i % tp] = d
+    return Mesh(grid, np.zeros((dp, tp), dtype=np.int64))
+
+
+def _match(path: str, pattern: str) -> bool:
+    """Suffix match: the pattern matches the trailing path segments."""
+    p_parts = pattern.split("/")
+    parts = path.split("/")
+    if len(parts) < len(p_parts):
+        return False
+    tail = parts[-len(p_parts):]
+    return all(pp == "*" or pp == part for pp, part in zip(p_parts, tail))
+
+
+def _map_tree(fn, tree: Params, prefix: str = "") -> Params:
+    """``fn(path, leaf)`` over a nested dict, paths joined with ``/``."""
+    return {
+        k: _map_tree(fn, v, f"{prefix}{k}/") if isinstance(v, dict)
+        else fn(f"{prefix}{k}", v)
+        for k, v in tree.items()
+    }
+
+
+def param_sharding(
+    mesh: Mesh, params: Params, use_tp: bool = False
+) -> Params:
+    """The tree of ``params`` with each leaf's plan: the axis ``tp``
+    shards where a rule matches (only with ``use_tp`` and a mesh whose tp
+    axis is larger than 1), else None (replicated)."""
+    on = use_tp and mesh.shape["tp"] > 1
+
+    def plan(path: str, leaf) -> typing.Optional[int]:
+        del leaf
+        if on:
+            for pattern, axis in _TP_RULES:
+                if _match(path, pattern):
+                    return axis
+        return None
+
+    return _map_tree(plan, params)
+
+
+def shard_rows(index: int, count: int, batch: int) -> slice:
+    """Rows ``[index * b, (index + 1) * b)`` of a batch of ``count * b``
+    rows: the one rule by which a batch splits over dp shards and over
+    ranks (:class:`BatchSharding`, ``process_local_batch_slice``, the
+    train step's ``Shard``)."""
+    if batch % count:
+        raise ValueError(f"batch {batch} does not divide into {count}")
+    per = batch // count
+    return slice(index * per, (index + 1) * per)
+
+
+class BatchSharding(typing.NamedTuple):
+    """The leading (batch) dimension split evenly over the mesh's dp
+    axis, in dp order."""
+
+    mesh: Mesh
+
+    def slices(self, batch: int) -> typing.List[slice]:
+        dp = self.mesh.shape["dp"]
+        return [shard_rows(i, dp, batch) for i in range(dp)]
+
+
+def batch_sharding(mesh: Mesh) -> BatchSharding:
+    """Batch-dimension sharding over dp for inputs and activations."""
+    return BatchSharding(mesh)
+
+
+def shard_params(
+    mesh: Mesh, params: Params, use_tp: bool = False
+) -> typing.List[Params]:
+    """One replica of ``params`` (a tree of tensors) per dp row this
+    process holds, on that row's device; rows on the same device share
+    one copy."""
+    if use_tp and mesh.shape["tp"] > 1:
+        raise NotImplementedError(
+            "tensor-parallel placement (tp > 1) is not ported; see "
+            "ROADMAP.md"
+        )
+    by_device: typing.Dict[torch.device, Params] = {}
+    out = []
+    for _, device in mesh.local_shards():
+        if device not in by_device:
+            by_device[device] = _map_tree(
+                lambda _, t: t.to(device), params
+            )
+        out.append(by_device[device])
+    return out
+
+
+def shard_batch(
+    mesh: Mesh, batch: typing.Mapping[str, typing.Any]
+) -> typing.List[typing.Dict[str, typing.Any]]:
+    """Each local dp row's part of ``batch`` (name -> tensor, numpy array
+    or None) on its device: leaves with a leading dim are sliced by rows,
+    0-dim leaves replicated."""
+    leaves = {k: None if v is None else torch.as_tensor(v)
+              for k, v in batch.items()}
+    size = next(t.shape[0] for t in leaves.values()
+                if t is not None and t.dim())
+    slices = batch_sharding(mesh).slices(size)
+    return [
+        {k: None if t is None else (t[slices[i]] if t.dim() else t).to(d)
+         for k, t in leaves.items()}
+        for i, d in mesh.local_shards()
+    ]

@@ -27,8 +27,16 @@ and float32 convolutions in float32.  The tracker, the kill-safe SIGTERM,
 ``pick_bucket`` are port copies of those in
 ``mimic3_tpu/runtime/session.py``.
 
-Not ported yet: CUDA graphs per warmed signature and multi-device
-serving (``dp`` is always 1).
+With ``mesh`` (``parallel.make_mesh``) the batch path runs data
+parallel, the counterpart of the reference's dp mesh: each dp replica
+holds the params and stage-kernel weights on its device, the duration
+pass runs per shard of rows, one host sync reads every shard's totals,
+and each shard decodes its rows at the one frame bucket on its own
+device (the stage kernel included).  Rows come back in order; on a mesh
+over several processes every rank computes its own shards and receives
+every row.  Streaming runs on replica 0.
+
+Not ported yet: CUDA graphs per warmed signature.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ import torch
 
 from ..config import TrainingConfig
 from ..models.vits.model import VitsModel, mix_seed
+from ..parallel import Mesh, all_gather_rows, batch_sharding, shard_params
 from .convert import to_torch_params
 
 _LOGGER = logging.getLogger(__name__)
@@ -443,7 +452,7 @@ def _start_host_copy(
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
     done = torch.cuda.Event()
-    done.record()
+    done.record(torch.cuda.current_stream(t.device))
 
     def wait() -> np.ndarray:
         done.synchronize()
@@ -646,8 +655,30 @@ class _ContinuationDriver:
             )
 
 
+@dataclass(frozen=True)
+class _Replica:
+    """The params and stage-kernel weights on one device."""
+
+    device: torch.device
+    params: typing.Dict[str, typing.Any]
+    stage_weights: typing.Dict[int, typing.Any]
+
+
+@dataclass
+class _ShardCall:
+    """One shard's device tensors during a batch call."""
+
+    replica: _Replica
+    ids: torch.Tensor
+    lengths: torch.Tensor
+    sid: typing.Optional[torch.Tensor]
+    durations: torch.Tensor
+
+
 class TorchVitsSession:
-    """A voice's synthesis engine on one torch device."""
+    """A voice's synthesis engine on one torch device, or data parallel
+    over the dp axis of ``mesh`` (a ``tp > 1`` mesh raises
+    ``NotImplementedError``)."""
 
     _SHARED: typing.Dict[str, "TorchVitsSession"] = {}
     _SHARED_LOCK = threading.Lock()
@@ -661,9 +692,24 @@ class TorchVitsSession:
         seed: int = 0,
         device: typing.Union[str, torch.device, None] = None,
         allow_bucket_growth: bool = False,
+        mesh: typing.Optional[Mesh] = None,
     ):
         self.config = config
-        self.device = resolve_device(device)
+        if mesh is not None:
+            if mesh.shape["tp"] > 1:
+                raise NotImplementedError(
+                    "tensor-parallel serving (tp > 1) is not ported: the "
+                    "port's decoder runs data parallel only; see ROADMAP.md"
+                )
+            if device is not None:
+                raise ValueError("a mesh names its devices; pass no device")
+            shards = mesh.local_shards()
+            for _, d in shards:
+                resolve_device(d)
+            self.device = shards[0][1]
+        else:
+            self.device = resolve_device(device)
+        self.mesh = mesh
         self.deterministic = deterministic
         decoder_dtype = (
             torch.float32
@@ -682,18 +728,38 @@ class TorchVitsSession:
             decoder_dtype=decoder_dtype,
             stage_max_channels=stage_max,
         )
-        self.params = to_torch_params(dict(params), self.device)
-        # fused decoder stages: weights laid out for the kernel once
-        self.stage_weights = self.model.pack_decoder(
-            self.params["dec"], self.device
-        )
+        # one replica per local dp row (one without a mesh): params, and
+        # the fused decoder stages' weights laid out for the kernel once
+        # per device; rows on one device share them
+        if mesh is None:
+            devices = [self.device]
+            replica_params = [to_torch_params(dict(params), self.device)]
+        else:
+            devices = [d for _, d in shards]
+            replica_params = shard_params(mesh, to_torch_params(dict(params)))
+        packed: typing.Dict[int, _Replica] = {}
+        self._replicas: typing.List[_Replica] = []
+        for device, p in zip(devices, replica_params):
+            if id(p) not in packed:
+                packed[id(p)] = _Replica(
+                    device, p, self.model.pack_decoder(p["dec"], device)
+                )
+            self._replicas.append(packed[id(p)])
+        # replica 0 serves streaming and the continuation driver
+        self.params = self._replicas[0].params
+        self.stage_weights = self._replicas[0].stage_weights
+        self.dp = 1 if mesh is None else mesh.shape["dp"]
+        self._multiprocess = mesh is not None and mesh.multiprocess
         self.text_buckets = tuple(config.tpu.text_buckets)
         self.frame_buckets = tuple(config.tpu.frame_buckets)
-        self.batch_buckets = tuple(sorted(config.tpu.batch_buckets)) or (1,)
+        # batch buckets round up to multiples of dp: every shard gets the
+        # same number of rows
+        self.batch_buckets = tuple(sorted({
+            -(-b // self.dp) * self.dp for b in config.tpu.batch_buckets
+        })) or (self.dp,)
         # False (serving default): inputs past the largest bucket are
         # truncated or split instead of growing a new bucket
         self.allow_bucket_growth = allow_bucket_growth
-        self.dp = 1  # one device; the scheduler reads it
         self.batcher = None  # optional server-side BatchScheduler
         self.batched_continuations = bool(
             getattr(config.tpu, "batched_continuations", True)
@@ -753,11 +819,36 @@ class TorchVitsSession:
             counter = self._call_counter
         return mix_seed(self.seed, counter)
 
-    def _put(self, array: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
+    def _put(
+        self, array: np.ndarray, device: typing.Optional[torch.device] = None
+    ) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(array)).to(
+            device or self.device
+        )
 
-    def _sid(self, sid: np.ndarray) -> typing.Optional[torch.Tensor]:
-        return self._put(sid) if self._multispeaker else None
+    def _sid(
+        self, sid: np.ndarray, device: typing.Optional[torch.device] = None
+    ) -> typing.Optional[torch.Tensor]:
+        return self._put(sid, device) if self._multispeaker else None
+
+    def _all_rows(self, rows: np.ndarray) -> np.ndarray:
+        """This process's shards' rows, or on a mesh over several
+        processes every rank's, in dp order."""
+        if not self._multiprocess:
+            return rows
+        return all_gather_rows(torch.from_numpy(rows)).numpy()
+
+    def _shards(
+        self, batch: int
+    ) -> typing.List[typing.Tuple[_Replica, slice]]:
+        """(replica, rows) of each dp shard this process runs."""
+        if self.mesh is None:
+            return [(self._replicas[0], slice(0, batch))]
+        rows = batch_sharding(self.mesh).slices(batch)
+        return [
+            (rep, rows[i])
+            for rep, (i, _) in zip(self._replicas, self.mesh.local_shards())
+        ]
 
     # -- signatures, warmed set, fallback ------------------------------------------
 
@@ -954,36 +1045,51 @@ class TorchVitsSession:
             max_frames_cap = min(max_frames_cap, self.frame_buckets[-1])
 
         with device_work():
-            ids_t, lengths_t, sid_t = (
-                self._put(ids), self._put(lengths), self._sid(sid)
-            )
+            # the duration pass per shard, each on its replica's device
+            shards = []
+            waits = []
+            for rep, rows in self._shards(b_bucket):
+                ids_t = self._put(ids[rows], rep.device)
+                lengths_t = self._put(lengths[rows], rep.device)
+                sid_t = self._sid(sid[rows], rep.device)
+                durations, totals = self.model.infer_durations(
+                    rep.params, ids_t, lengths_t, call_seed,
+                    float(length_scale), float(noise_w), sid=sid_t,
+                )
+                shards.append(_ShardCall(rep, ids_t, lengths_t, sid_t,
+                                         durations))
+                waits.append(_start_host_copy(totals))
             self._note_run(hit_key("duration", b_bucket, t_bucket))
-            durations, totals = self.model.infer_durations(
-                self.params, ids_t, lengths_t, call_seed,
-                float(length_scale), float(noise_w), sid=sid_t,
-            )
-            wait_totals = _start_host_copy(totals)
 
             def decode(num_frames: int):
-                return self.model.decode_frames(
-                    self.params, ids_t, lengths_t, durations, num_frames,
-                    call_seed, float(noise_scale), sid=sid_t,
-                    stage_weights=self.stage_weights,
-                )
+                # every shard at the one frame bucket, on its own device
+                return [
+                    self.model.decode_frames(
+                        sh.replica.params, sh.ids, sh.lengths, sh.durations,
+                        num_frames, call_seed, float(noise_scale),
+                        sid=sh.sid, stage_weights=sh.replica.stage_weights,
+                    )
+                    for sh in shards
+                ]
 
             # speculative decode at a predicted bucket, enqueued before
             # the host waits for the totals
             spec_bucket = self._speculative_bucket(
                 b_bucket, t_bucket, lengths[:batch], length_scale
             )
-            spec_result = spec_done = None
+            spec_result = None
+            spec_done: typing.List[torch.cuda.Event] = []
             if spec_bucket is not None:
                 spec_result = decode(spec_bucket)
-                if self.device.type == "cuda":
-                    spec_done = torch.cuda.Event()
-                    spec_done.record()
+                for d in {sh.replica.device for sh in shards}:
+                    if d.type == "cuda":
+                        spec_done.append(torch.cuda.Event())
+                        spec_done[-1].record(torch.cuda.current_stream(d))
 
-            totals_np = wait_totals()  # the one host sync
+            # the one host sync: every shard's totals
+            totals_np = self._all_rows(
+                np.concatenate([wait() for wait in waits])
+            )
             needed = int(totals_np[:batch].max())
             truncated = needed > max_frames_cap
             if truncated:
@@ -993,9 +1099,11 @@ class TorchVitsSession:
                 )
                 needed = max_frames_cap
                 # clamp the durations so sample lengths match the audio
-                durations = self._put(
-                    _recap(durations.cpu().numpy(), max_frames_cap)
-                )
+                for sh in shards:
+                    sh.durations = self._put(
+                        _recap(sh.durations.cpu().numpy(), max_frames_cap),
+                        sh.replica.device,
+                    )
             f_bucket = pick_bucket(
                 needed, self.frame_buckets, grow=self.allow_bucket_growth
             )
@@ -1009,21 +1117,25 @@ class TorchVitsSession:
             if spec_result is not None:
                 with self._lock:
                     self.speculation["used" if used else "fell_back"] += 1
-                    if spec_done is not None and not spec_done.query():
+                    if not all(e.query() for e in spec_done):
                         self.speculation["overlapped"] += 1
             if used:
-                audio, sample_lengths = spec_result  # prediction held
+                result = spec_result  # prediction held
                 f_bucket = spec_bucket
             else:
                 # round up to the nearest warmed decode bucket
                 f_bucket = self._fallback_f(b_bucket, t_bucket, f_bucket)
                 dec_key = hit_key("decode", b_bucket, t_bucket, f_bucket)
                 self._note_run(dec_key)
-                audio, sample_lengths = decode(f_bucket)
+                result = decode(f_bucket)
                 with self._lock:
                     self._decode_keys_run.add(dec_key)
-            audio_np = audio.float().cpu().numpy()
-            sample_lengths_np = sample_lengths.cpu().numpy()
+            audio_np = self._all_rows(np.concatenate(
+                [audio.float().cpu().numpy() for audio, _ in result]
+            ))
+            sample_lengths_np = self._all_rows(np.concatenate(
+                [lengths_t.cpu().numpy() for _, lengths_t in result]
+            ))
         results = [
             audio_np[i, : int(sample_lengths_np[i])] for i in range(batch)
         ]
@@ -1423,13 +1535,18 @@ class TorchVitsSession:
             )
         warmed: typing.Set[str] = set()
 
-        def inputs(b: int, t: int):
+        def inputs(
+            b: int, t: int, device: typing.Optional[torch.device] = None
+        ):
             return (
-                self._put(np.zeros((b, t), np.int64)),
-                self._put(np.full((b,), t, np.int64)),
-                self._sid(np.zeros((b,), np.int64)),
+                self._put(np.zeros((b, t), np.int64), device),
+                self._put(np.full((b,), t, np.int64), device),
+                self._sid(np.zeros((b,), np.int64), device),
             )
 
+        # the batch path's signatures on every replica (one per device),
+        # each at a shard's rows
+        replicas = list({id(r): r for r in self._replicas}.values())
         for b in batch_sizes:
             for t in tb:
                 fbs = [f for f in fb if want(hit_key("decode", b, t, f))]
@@ -1438,16 +1555,19 @@ class TorchVitsSession:
                 if graceful_shutdown_requested():
                     break
                 with device_work():
-                    ids, lengths, sid = inputs(b, t)
-                    durations, _ = self.model.infer_durations(
-                        self.params, ids, lengths, 0, 1.0, 0.8, sid=sid
-                    )
+                    for rep in replicas:
+                        ids, lengths, sid = inputs(b // self.dp, t, rep.device)
+                        durations, _ = self.model.infer_durations(
+                            rep.params, ids, lengths, 0, 1.0, 0.8, sid=sid
+                        )
+                        for f in fbs:
+                            self.model.decode_frames(
+                                rep.params, ids, lengths, durations, f, 0,
+                                0.667, sid=sid,
+                                stage_weights=rep.stage_weights,
+                            )
                     warmed.add(hit_key("duration", b, t))
                     for f in fbs:
-                        self.model.decode_frames(
-                            self.params, ids, lengths, durations, f, 0,
-                            0.667, sid=sid, stage_weights=self.stage_weights,
-                        )
                         key = hit_key("decode", b, t, f)
                         warmed.add(key)
                         with self._lock:
@@ -1485,8 +1605,9 @@ class TorchVitsSession:
                                 stage_weights=self.stage_weights,
                             )
                             warmed.add(hit_key("chunk", b, t, w))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)  # the work is done, not queued
+        for d in {rep.device for rep in self._replicas}:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)  # the work is done, not queued
         elapsed = time.perf_counter() - start
         self.stats.compile_count += len(warmed)
         with self._lock:

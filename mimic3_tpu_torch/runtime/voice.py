@@ -6,12 +6,13 @@ The voice classes of the reference (``text_to_phonemes`` /
 :func:`load_from_directory`, which loads a Mimic 3 voice directory
 (``config.json``, ``phonemes.txt``, ``generator.npz`` or
 ``generator.onnx``, optional ``phoneme_map.txt`` / ``speaker_map.csv``)
-onto one torch device.  A voice that ships only ``generator.onnx`` (every
-voice of the registry) is converted by the port's own converter on first
-use (``runtime/convert.py``).
+onto one torch device, or data parallel over several (``dp``).  A voice
+that ships only ``generator.onnx`` (every voice of the registry) is
+converted by the port's own converter on first use
+(``runtime/convert.py``).
 
 Port copy of ``mimic3_tpu/runtime/voice.py``: the classes lose the
-``Tpu`` of their names and the data-parallel mesh branch is dropped.
+``Tpu`` of their names.
 """
 
 from __future__ import annotations
@@ -209,10 +210,20 @@ def load_from_directory(
     deterministic: bool = False,
     seed: int = 0,
     device: typing.Union[str, torch.device, None] = None,
+    dp: typing.Optional[int] = None,
 ) -> "VitsVoice":
     """Load a voice directory (Mimic 3 voice layout) onto a torch session
     on ``device`` (the card by default; runtime/session.py
-    ``resolve_device``)."""
+    ``resolve_device``).
+
+    ``dp`` > 1 serves the voice data parallel over that many devices of
+    ``device``'s type: the visible cards ``cuda:0..dp-1`` (raising when
+    fewer are visible), or ``dp`` replicas on the CPU.  ``dp=-1`` uses
+    every visible card.  Default from ``$MIMIC3_DP`` (unset/0/1 = one
+    device).
+    """
+    import os
+
     voice_dir = Path(voice_dir)
     _LOGGER.debug("Loading voice from %s", voice_dir)
 
@@ -221,13 +232,29 @@ def load_from_directory(
     with open(voice_dir / "phonemes.txt", "r", encoding="utf-8") as ids_file:
         phoneme_to_id = load_phoneme_ids(ids_file)
 
+    if dp is None:
+        dp = int(os.environ.get("MIMIC3_DP", "0") or 0)
+
     def make_session() -> TorchVitsSession:
+        mesh = None
+        if dp and dp != 1:
+            from ..parallel import make_mesh
+
+            platform = torch.device(device or "cuda").type
+            mesh = make_mesh(
+                n_devices=None if dp == -1 else dp, platform=platform
+            )
+            _LOGGER.info(
+                "Serving %s data-parallel over %d %s device(s)",
+                voice_dir.name, mesh.shape["dp"], platform,
+            )
         return TorchVitsSession(
             config,
             _load_voice_params(voice_dir),
             deterministic=deterministic,
             seed=seed,
-            device=device,
+            device=device if mesh is None else None,
+            mesh=mesh,
         )
 
     if share_sessions:
@@ -235,6 +262,7 @@ def load_from_directory(
             str((voice_dir / "generator").absolute())
             + (":det" if deterministic else "")
             + (f":{device}" if device else "")
+            + (f":dp{dp}" if dp and dp != 1 else "")
         )
         session = TorchVitsSession.get_shared(key, make_session)
     else:

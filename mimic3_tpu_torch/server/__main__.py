@@ -4,8 +4,10 @@ Flag-compatible with the reference server CLI
 (reference: mimic3_http/args.py:24-111, default port 59125) plus the
 serving knobs (--max-batch, --batch-delay-ms, --warmup) and
 ``--device {cuda,cpu}`` (default ``cuda``; with no card visible it
-raises, the CPU is used only when named).  ``--dp`` above 1 is refused:
-serving over several cards is not ported.
+raises, the CPU is used only when named).  ``--dp N`` serves every voice
+data parallel over N devices, as the reference does through
+``MIMIC3_DP``: N cards (more than are visible raises when the voice
+loads), or N replicas with ``--device cpu``.
 
 Port copy of ``mimic3_tpu/server/__main__.py``.
 """
@@ -151,8 +153,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--dp", type=int, default=None,
-        help="Data-parallel devices: only 0/1 (one device) is taken; "
-        "serving over several cards is not ported",
+        help="Data-parallel devices per voice (sets MIMIC3_DP; -1 = every "
+        "visible card; 0/1 = one device)",
     )
     parser.add_argument(
         "--device",
@@ -214,17 +216,26 @@ def config_from_args(args: argparse.Namespace) -> ServerConfig:
 def parse_args(
     argv: typing.Optional[typing.Sequence[str]] = None,
 ) -> typing.Tuple[argparse.Namespace, str]:
-    """(the server's arguments, ``--device``); exits with a usage error
-    for ``--dp`` above 1."""
+    """(the server's arguments, ``--device``)."""
     parser = build_arg_parser()
     parser.prog = "python -m mimic3_tpu_torch.server"
     args = parser.parse_args(argv)
-    if args.dp is not None and args.dp not in (0, 1):
-        parser.error(
-            f"--dp {args.dp}: serving over several cards is not ported; "
-            "the port serves on one device"
-        )
     return args, args.device
+
+
+def apply_dp(dp: typing.Optional[int]) -> None:
+    """``--dp``: set ``MIMIC3_DP``, which voices read when they load
+    (runtime/voice.py); 0 or 1 clears an inherited one."""
+    import os
+
+    if dp is None:
+        return
+    if dp in (0, 1):
+        # an explicit single-device request overrides an inherited
+        # MIMIC3_DP (the flag's documented semantics win)
+        os.environ.pop("MIMIC3_DP", None)
+    else:
+        os.environ["MIMIC3_DP"] = str(dp)
 
 
 def create_app(argv: typing.Optional[typing.Sequence[str]] = None):
@@ -243,6 +254,7 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
         print(__version__)
         return 0
     logging.basicConfig(level=logging.DEBUG if args.debug else logging.INFO)
+    apply_dp(args.dp)
 
     from ..runtime.session import (
         graceful_shutdown_requested,

@@ -5,13 +5,23 @@ directory provides ``config.json`` + ``phonemes.txt`` (and optionally
 ``generator.npz`` to fine-tune); data is LJSpeech-style ``metadata.csv``
 + WAVs.
 
-Runs on one device: the card unless ``--device cpu`` is given, and
-without a card it raises as the port's other entry points do.  Data
-parallel over several cards is not here yet.  Checkpoints are
+Runs on the card unless ``--device cpu`` is given, and without a card it
+raises as the port's other entry points do.  Data parallel over N cards
+with one process per card, launched by PyTorch's launcher::
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m mimic3_tpu_torch.train_cli VOICE_DIR --metadata ... ...
+
+Each rank trains on ``cuda:LOCAL_RANK`` (``parallel/distributed.py``
+picks the backend), iterates the same seeded batch stream and keeps its
+rows of each global batch (rounded up to a multiple of the world size);
+the step sums the gradients over the ranks (``models/vits/train.py``),
+so it equals the one-device step on the global batch.  Checkpoints are
 ``torch.save`` files under ``--checkpoint-dir/<step>/``; ``--export``
 writes inference weights back to the voice directory as the reference's
 ``generator.npz`` (JAX layout, weight norm folded, no ``enc_q``), which
-the port's engine and the JAX package both load.
+the port's engine and the JAX package both load.  Rank 0 alone writes
+both; the other ranks wait for it.
 """
 
 from __future__ import annotations
@@ -78,6 +88,17 @@ def export_params(params) -> typing.Dict[str, typing.Any]:
     return fold_tree(to_jax_layout(
         {k: v for k, v in params.items() if k != "enc_q"}
     ))
+
+
+def params_digest(state) -> str:
+    """SHA-256 of every generator and discriminator parameter's bytes, in
+    the trees' order."""
+    import hashlib
+
+    digest = hashlib.sha256()
+    for _, t in state.g_leaves + state.d_leaves:
+        digest.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return digest.hexdigest()
 
 
 def save_checkpoint(path: Path, state) -> None:
@@ -154,10 +175,14 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
     from .config import TrainingConfig
     from .models.vits.model import mix_seed
     from .models.vits.train import (
+        Shard,
+        TrainBatch,
         init_train_state,
         init_training_params,
         make_train_step,
     )
+    from .parallel import initialize_distributed, process_local_batch_slice
+    from .parallel.distributed import local_device
     from .runtime.convert import (
         load_pytree_npz,
         save_pytree_npz,
@@ -166,7 +191,18 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
     from .runtime.dataset import batches, load_metadata, make_frontend
     from .runtime.session import resolve_device
 
-    device = resolve_device(args.device)
+    # several processes (torch.distributed.run's variables set): join
+    # the group first; one process: a no-op
+    multi_process = initialize_distributed(device=args.device)
+    shard = None
+    if multi_process:
+        import torch.distributed as dist
+
+        device = local_device(args.device)
+        shard = Shard(dist.get_rank(), dist.get_world_size())
+    else:
+        device = resolve_device(args.device)
+    leader = shard is None or shard.rank == 0
     voice_dir = Path(args.voice_dir)
     config = TrainingConfig.load_path(voice_dir / "config.json")
     if args.learning_rate:
@@ -174,6 +210,11 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
     if args.seed is not None:
         config.seed = args.seed
     batch_size = args.batch_size or config.batch_size
+    world = 1 if shard is None else shard.world
+    if batch_size % world:
+        batch_size += world - batch_size % world
+        _LOGGER.info("Rounded batch size to %d (world size %d)",
+                     batch_size, world)
 
     _LOGGER.info("Phonemizing dataset...")
     frontend = make_frontend(voice_dir)
@@ -218,44 +259,70 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
     train_step = make_train_step(config, steps_per_epoch=steps_per_epoch)
     data = batches(utterances, config, batch_size, seed=config.seed)
     _LOGGER.info(
-        "Training: %d steps, batch %d, on %s", args.steps, batch_size,
+        "Training: %d steps, batch %d, on %s%s", args.steps, batch_size,
         torch.cuda.get_device_name(device) if device.type == "cuda"
         else device,
+        "" if shard is None else
+        f" (rank {shard.rank} of {shard.world}, {device})",
     )
+    # every rank iterates the same batch stream and keeps its rows
+    local_start, local_size = process_local_batch_slice(batch_size)
+
+    def rows(batch: TrainBatch) -> TrainBatch:
+        return TrainBatch(*(
+            None if t is None else t[local_start : local_start + local_size]
+            for t in (batch.phoneme_ids, batch.text_lengths, batch.audio,
+                      batch.spec_lengths, batch.speaker_ids)
+        ))
+
+    def checkpoint(path: Path, what: str) -> None:
+        if leader:
+            save_checkpoint(path, state)
+            _LOGGER.info("%s: %s", what, path)
+        barrier()
+
+    def barrier() -> None:
+        if shard is not None:
+            dist.barrier()
 
     generator = torch.Generator(device)
     t_start = time.time()
     for step_num in range(start_step, start_step + args.steps):
-        batch = next(data).to(device)
+        batch = rows(next(data)).to(device)
         # each step's draws depend on (seed, step) only, as the
         # reference's fold_in(step_rng, step): a resumed run draws what an
-        # uninterrupted one would
+        # uninterrupted one would, and every rank draws the same
         generator.manual_seed(mix_seed(config.seed + 1, step_num))
-        state, metrics = train_step(state, batch, generator=generator)
+        state, metrics = train_step(state, batch, generator=generator,
+                                    shard=shard)
         if (step_num + 1) % args.log_every == 0:
-            vals = {k: round(float(v), 4) for k, v in metrics.items()}
+            vals = {k: float(f"{float(v):.7g}") for k, v in metrics.items()}
             rate = (step_num + 1 - start_step) / (time.time() - t_start)
             _LOGGER.info(
                 "step %d %s (%.2f steps/s)", step_num + 1, vals, rate
             )
         if (step_num + 1) % args.checkpoint_every == 0:
-            path = ckpt_dir / str(step_num + 1)
-            save_checkpoint(path, state)
-            _LOGGER.info("Checkpoint: %s", path)
+            checkpoint(ckpt_dir / str(step_num + 1), "Checkpoint")
 
     # always checkpoint the FINAL step: when the run length isn't a
     # multiple of --checkpoint-every, a later --resume would otherwise
     # silently restart from an earlier step
     final_step = start_step + args.steps
     if final_step % args.checkpoint_every != 0:
-        path = ckpt_dir / str(final_step)
-        save_checkpoint(path, state)
-        _LOGGER.info("Final checkpoint: %s", path)
+        checkpoint(ckpt_dir / str(final_step), "Final checkpoint")
+
+    if shard is not None:
+        # replicas that stepped identically hold identical parameters:
+        # each rank logs a digest of its own, so a divergence shows
+        _LOGGER.info("Final parameter digest (rank %d): %s", shard.rank,
+                     params_digest(state))
 
     if args.export:
-        save_pytree_npz(voice_dir / "generator.npz",
-                        export_params(state.params))
-        _LOGGER.info("Exported %s", voice_dir / "generator.npz")
+        if leader:
+            save_pytree_npz(voice_dir / "generator.npz",
+                            export_params(state.params))
+            _LOGGER.info("Exported %s", voice_dir / "generator.npz")
+        barrier()
 
     print(json.dumps({"steps": args.steps, "final_step": state.step}))
     return 0

@@ -3,7 +3,7 @@
 ``python -m mimic3_tpu_torch.server``'s app (``create_app`` with
 ``--device cpu``) is preloaded with warmup on a tiny voice and served on a
 background thread; requests go through urllib as a client's would.  Also:
-``--dp`` above 1 is refused, nothing runs on the CPU unless it is named,
+``--dp`` sets ``MIMIC3_DP``, nothing runs on the CPU unless it is named,
 and the server runs with JAX blocked.
 """
 
@@ -30,7 +30,8 @@ from mimic3_tpu.runtime.convert import load_pytree_npz
 from mimic3_tpu_torch import cli
 from mimic3_tpu_torch.runtime.session import TorchVitsSession
 from mimic3_tpu_torch.runtime.testvoice import create_test_voice
-from mimic3_tpu_torch.server.__main__ import create_app, parse_args
+from mimic3_tpu_torch.runtime.voice import load_from_directory
+from mimic3_tpu_torch.server.__main__ import apply_dp, create_app, parse_args
 from test_torch_server_thread import ServerThread
 
 REPO = Path(__file__).resolve().parents[1]
@@ -203,11 +204,22 @@ def test_profile_capture_writes_torch_trace(server):
     assert "traceEvents" in json.loads(traces[0].read_text())
 
 
-def test_dp_above_one_is_refused():
-    with pytest.raises(SystemExit):
-        parse_args(["--dp", "2", "--device", "cpu"])
-    args, device = parse_args(["--dp", "1", "--device", "cpu"])
-    assert args.dp == 1 and device == "cpu"
+def test_dp_above_one_is_refused(tmp_path, monkeypatch):
+    """``--dp N`` is taken and sets ``MIMIC3_DP`` as the reference's
+    server does (0/1 clears it); a dp above the visible cards is refused
+    when the voice loads, never shrunk or moved to the CPU."""
+    monkeypatch.delenv("MIMIC3_DP", raising=False)
+    args, device = parse_args(["--dp", "2", "--device", "cpu"])
+    assert args.dp == 2 and device == "cpu"
+    apply_dp(args.dp)
+    assert os.environ["MIMIC3_DP"] == "2"
+    args, _ = parse_args(["--dp", "1", "--device", "cpu"])
+    apply_dp(args.dp)
+    assert "MIMIC3_DP" not in os.environ
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="needs that many cards"):
+        load_from_directory(_voice(tmp_path), share_sessions=False, dp=2)
 
 
 def test_no_device_named_raises_without_card(tmp_path, monkeypatch):

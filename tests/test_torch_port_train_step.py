@@ -63,39 +63,6 @@ def reference():
                        decoder_dtype=jnp.float32)
 
     @jax.jit
-    def grads(params, disc_params, batch, rng):
-        rng_g = jax.random.fold_in(rng, 0)
-        fwd = jtrain.generator_forward(model, cfg, params, batch, rng_g)
-
-        def disc_loss_fn(dp):
-            real, _ = jtrain.discriminate(dp, fwd["y_real"])
-            fake, _ = jtrain.discriminate(
-                dp, jax.lax.stop_gradient(fwd["y_hat"])
-            )
-            return jtrain.discriminator_adv_loss(real, fake)
-
-        loss_d, grads_d = jax.value_and_grad(disc_loss_fn)(disc_params)
-
-        def gen_loss_fn(p):
-            out = jtrain.generator_forward(model, cfg, p, batch, rng_g)
-            _, fmaps_r = jtrain.discriminate(disc_params, out["y_real"])
-            fake, fmaps_f = jtrain.discriminate(disc_params, out["y_hat"])
-            loss_adv = jtrain.generator_adv_loss(fake)
-            loss_fm = jtrain.feature_matching_loss(fmaps_r, fmaps_f)
-            loss = (out["loss_mel"] * cfg.c_mel + out["loss_kl"] * cfg.c_kl
-                    + out["loss_dur"] + loss_adv + loss_fm)
-            return loss, dict(loss_g=loss, loss_mel=out["loss_mel"],
-                              loss_kl=out["loss_kl"],
-                              loss_dur=out["loss_dur"], loss_adv=loss_adv,
-                              loss_fm=loss_fm, attn=out["attn"])
-
-        (_, metrics), grads_g = jax.value_and_grad(
-            gen_loss_fn, has_aux=True
-        )(params)
-        metrics["loss_d"] = loss_d
-        return metrics, grads_g, grads_d
-
-    @jax.jit
     def mas_input(params, batch, rng):
         k_post = jax.random.split(jax.random.fold_in(rng, 0), 3)[0]
         x_mask = j_sequence_mask(batch.text_lengths,
@@ -117,15 +84,14 @@ def reference():
         )
 
     rng = jax.random.PRNGKey(1)
-    metrics, grads_g, grads_d = grads(state0.params, state0.disc_params,
-                                      batch, rng)
+    metrics, grads_g, grads_d = ref_lib.reference_step(cfg, state0, b, rng)
     return dict(
         batch=b,
         params0=ref_lib.host(state0.params),
         disc0=ref_lib.host(state0.disc_params),
-        metrics=ref_lib.host(metrics),
-        grads_g=ref_lib.flat(ref_lib.host(grads_g)),
-        grads_d=ref_lib.flat(ref_lib.host(grads_d)),
+        metrics=metrics,
+        grads_g=ref_lib.flat(grads_g),
+        grads_d=ref_lib.flat(grads_d),
         neg_x_ent=np.asarray(mas_input(state0.params, batch, rng)),
     )
 
@@ -175,27 +141,9 @@ def test_generator_forward_losses_match(reference, port_step):
 
 @pytest.mark.parametrize("which", ["grads_g", "grads_d"])
 def test_every_gradient_matches(reference, port_step, which):
-    want, got = reference[which], port_step[which]
-    assert set(got) == set(want)
-    scale = max(float(np.abs(w).max()) for w in want.values())
-    bad = {}
-    for name, w in want.items():
-        g = got[name]
-        assert g.shape == w.shape, name
-        if ref_lib.zero_gradient_in_exact_arithmetic(name):
-            # float32 noise on both sides: held to a millionth of the
-            # largest gradient instead
-            assert max(np.abs(g).max(), np.abs(w).max()) < 1e-6 * scale
-            continue
-        norm = np.linalg.norm(w)
-        err = np.linalg.norm(g - w) / norm if norm else np.abs(g).max()
-        if not err <= GRAD_REL_L2:
-            bad[name] = float(err)
+    bad = ref_lib.gradient_errors(reference[which], port_step[which],
+                                  GRAD_REL_L2)
     assert not bad, bad
-    # the same tensors receive no gradient at all
-    assert {n for n, w in want.items() if not w.any()} == {
-        n for n, g in got.items() if not g.any()
-    }
 
 
 def test_mas_on_the_step_scores_is_bit_equal(reference, port_step):

@@ -16,6 +16,7 @@ broad and the same change moves the gradient by 2.8e-6.
 """
 
 import fnmatch
+import types
 
 import numpy as np
 import torch
@@ -46,31 +47,39 @@ def zero_gradient_in_exact_arithmetic(name: str) -> bool:
     return any(fnmatch.fnmatch(name, p) for p in _ZERO_GRADIENT)
 
 
-def config(port: bool = False, **overrides):
+def config(port: bool = False, model=None, **overrides):
+    """The tiny config; ``model`` updates its model fields (a variant),
+    ``overrides`` its training fields."""
     cls, model_cls = (
         (TTrainingConfig, TModelConfig) if port
         else (TrainingConfig, ModelConfig)
     )
     cfg = cls()
-    cfg.model = model_cls(
-        num_symbols=40, n_layers=1, hidden_channels=32, inter_channels=32,
-        filter_channels=64, upsample_initial_channel=64,
-    )
+    cfg.model = model_cls(**{
+        **dict(num_symbols=40, n_layers=1, hidden_channels=32,
+               inter_channels=32, filter_channels=64,
+               upsample_initial_channel=64),
+        **(model or {}),
+    })
     cfg.segment_size = 2048
     for key, value in overrides.items():
         setattr(cfg, key, value)
     return cfg
 
 
-def batch_arrays():
-    """tests/test_training.py's batch, as numpy."""
+def batch_arrays(rows: int = 2, n_speakers: int = 1):
+    """tests/test_training.py's batch, as numpy (``rows`` up to 4; with
+    several speakers, ``speaker_ids`` cycle through them)."""
     rng = np.random.RandomState(0)
-    return dict(
-        phoneme_ids=rng.randint(1, 40, (2, 6)).astype(np.int32),
-        text_lengths=np.array([6, 4], np.int32),
-        audio=(rng.randn(2, 4096) * 0.1).astype(np.float32),
-        spec_lengths=np.array([16, 12], np.int32),
+    b = dict(
+        phoneme_ids=rng.randint(1, 40, (rows, 6)).astype(np.int32),
+        text_lengths=np.array([6, 4, 5, 3][:rows], np.int32),
+        audio=(rng.randn(rows, 4096) * 0.1).astype(np.float32),
+        spec_lengths=np.array([16, 12, 14, 10][:rows], np.int32),
     )
+    if n_speakers > 1:
+        b["speaker_ids"] = (np.arange(rows) % n_speakers).astype(np.int32)
+    return b
 
 
 def j_batch(b):
@@ -101,6 +110,89 @@ def initial_state(cfg):
         params=params, disc_params=state.disc_params, opt_g=state.opt_g,
         opt_d=state.opt_d, step=state.step,
     )
+
+
+def port_initial_state(tcfg):
+    """The port's own training init (``init_training_params(0, ...)``,
+    no JAX compile) with the decoder's gains scaled as
+    :func:`initial_state` scales them: host trees in the JAX layout, as
+    ``.params`` and ``.disc_params``."""
+    params, disc = ttrain.init_training_params(0, tcfg)
+    for name, t in ttrain.tree_leaves(params["dec"]):
+        if name.endswith("weight_g"):
+            t.mul_(DECODER_GAIN)
+    return types.SimpleNamespace(params=host(params), disc_params=host(disc))
+
+
+def reference_step(cfg, state0, b, rng):
+    """The reference's first step (train.py:372-421) on batch ``b``
+    against the initial discriminators, jitted: (metrics incl. ``attn``,
+    G gradients, D gradients), each a host tree."""
+    from mimic3_tpu.models.vits.model import VitsModel as JVitsModel
+
+    model = JVitsModel(cfg.model, compute_dtype=jnp.float32,
+                       decoder_dtype=jnp.float32)
+
+    @jax.jit
+    def grads(params, disc_params, batch, rng):
+        rng_g = jax.random.fold_in(rng, 0)
+        fwd = jtrain.generator_forward(model, cfg, params, batch, rng_g)
+
+        def disc_loss_fn(dp):
+            real, _ = jtrain.discriminate(dp, fwd["y_real"])
+            fake, _ = jtrain.discriminate(
+                dp, jax.lax.stop_gradient(fwd["y_hat"])
+            )
+            return jtrain.discriminator_adv_loss(real, fake)
+
+        loss_d, grads_d = jax.value_and_grad(disc_loss_fn)(disc_params)
+
+        def gen_loss_fn(p):
+            out = jtrain.generator_forward(model, cfg, p, batch, rng_g)
+            _, fmaps_r = jtrain.discriminate(disc_params, out["y_real"])
+            fake, fmaps_f = jtrain.discriminate(disc_params, out["y_hat"])
+            loss_adv = jtrain.generator_adv_loss(fake)
+            loss_fm = jtrain.feature_matching_loss(fmaps_r, fmaps_f)
+            loss = (out["loss_mel"] * cfg.c_mel + out["loss_kl"] * cfg.c_kl
+                    + out["loss_dur"] + loss_adv + loss_fm)
+            return loss, dict(loss_g=loss, loss_mel=out["loss_mel"],
+                              loss_kl=out["loss_kl"],
+                              loss_dur=out["loss_dur"], loss_adv=loss_adv,
+                              loss_fm=loss_fm, attn=out["attn"])
+
+        (_, metrics), grads_g = jax.value_and_grad(
+            gen_loss_fn, has_aux=True
+        )(params)
+        metrics["loss_d"] = loss_d
+        return metrics, grads_g, grads_d
+
+    metrics, grads_g, grads_d = grads(state0.params, state0.disc_params,
+                                      j_batch(b), rng)
+    return host(metrics), host(grads_g), host(grads_d)
+
+
+def gradient_errors(want, got, bar):
+    """{name: relative L2 error} of every gradient past ``bar``, after
+    the checks of the train-step test: the same names and shapes, the
+    gradients zero in exact arithmetic within a millionth of the largest,
+    and the same set of tensors without a gradient."""
+    assert set(got) == set(want)
+    scale = max(float(np.abs(w).max()) for w in want.values())
+    bad = {}
+    for name, w in want.items():
+        g = got[name]
+        assert g.shape == w.shape, name
+        if zero_gradient_in_exact_arithmetic(name):
+            assert max(np.abs(g).max(), np.abs(w).max()) < 1e-6 * scale
+            continue
+        norm = np.linalg.norm(w)
+        err = np.linalg.norm(g - w) / norm if norm else np.abs(g).max()
+        if not err <= bar:
+            bad[name] = float(err)
+    assert {n for n, w in want.items() if not w.any()} == {
+        n for n, g in got.items() if not g.any()
+    }
+    return bad
 
 
 def host(tree):
