@@ -2,16 +2,19 @@
 
 Builds the port's CUDA kernels from this checkout (one nvcc per source,
 started together), checks in their SASS that both run on tensor cores
-(HMMA/HGMMA), and holds each against its plain PyTorch version at the
-shapes its path gives it, f32 (FFMA) and bf16 (tensor cores), timed in
-turns with CUDA events; the bf16 stage is also swept over the decoder's
-fusable stages (the sweep that sets the bf16 stage gate).  Then drives
-the port's paths on a full-width ``*_low`` voice with random weights made
-from a seed, each with the kernel launch counts set to 0 just before it
-and read just after:
+(HMMA/HGMMA) and that every f32 instantiation runs TF32 HMMAs, and holds
+each against its plain PyTorch version at the shapes its path gives it,
+f32 (three TF32 passes) and bf16 (tensor cores), and at C = 8 (FFMA) in
+both, timed in turns with CUDA events; the stage is also swept in both
+dtypes over the decoder's fusable stages (the sweep that sets each
+dtype's stage gate, held to the session's within a noise band).  Then
+drives the port's paths on a full-width ``*_low`` voice with random
+weights made from a seed, each with the kernel launch counts set to 0
+just before it and read just after:
 
 - the main path: engine -> voice -> session -> VITS -> WAV, in process
-  and through the CLI;
+  and through the CLI, deterministic (f32 decoder: bitwise-equal WAVs
+  from two calls, the f32 stage launches per call) and default (bf16);
 - the resblock profiling entry point
   (``python -m mimic3_tpu_torch.scripts.profile_resblock``);
 - streaming: ``synthesize_ids_chunked`` and ``stream_start_batch``;
@@ -39,7 +42,8 @@ and read just after:
     python3 chip_smoke.py
 
 Prints one line per phase, then a JSON line with each kernel's launches,
-error, times, bound and tensor-core instruction counts, then
+error, times, bound and tensor-core instruction counts (and its f32
+path's times, both f32 bounds and the f32 stage gate), then
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero,
 printing no result, when any phase fails or no card is visible.  Needs no
 network, no JAX and nothing of the JAX package.
@@ -59,6 +63,7 @@ import tempfile
 import threading
 import time
 import traceback
+import typing
 import urllib.parse
 import urllib.request
 import wave
@@ -96,11 +101,19 @@ F32_BAR = "2e-4 + 1e-3*|ref|"
 # (out = x + branch), of the branches out - x, which a dropped bias or
 # tap moves far more than it moves the output
 BF16_CORR = 0.999
+# the stage gate sweep's noise band on kernel/plain: cuDNN's plain time of
+# one shape (f32 last stage, 128 frames, B=1) read 2.191 and 1.473 ms in
+# two runs on one H100 (1.49x; PERF.md)
+GATE_NOISE = 1.5
 BF16_BRANCH_CORR = 0.9999
 # published H100 SXM peaks (NVIDIA's H100 datasheet): the bound of a
 # kernel is the larger of its operations over the peak of their type and
-# its bytes over the memory rate
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# its bytes over the memory rate.  The f32 kernels run three TF32 passes
+# (495 TFLOP/s dense) per f32 product: an f32-equivalent ceiling of 165;
+# FFMA (67) stays beside it.
+TF32X3 = "tf32x3"
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
+              TF32X3: 495e12 / 3}
 PEAK_BYTES = 3.35e12
 
 
@@ -134,12 +147,48 @@ def tensor_corr(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.corrcoef(torch.stack([a.ravel(), b.ravel()]))[0, 1])
 
 
-def bound(flops: float, nbytes: float, dtype) -> tuple:
-    """(least ms the card could take, what bounds it)."""
-    compute, memory = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak) -> tuple:
+    """(least ms the card could take, what bounds it) at the peak of
+    ``PEAK_FLOPS[peak]``."""
+    compute, memory = flops / PEAK_FLOPS[peak], nbytes / PEAK_BYTES
     return max(compute, memory) * 1e3, (
         "operations" if compute >= memory else "bytes"
     )
+
+
+class Check(typing.NamedTuple):
+    """A kernel held against plain: its error and times; the bound of its
+    path (bf16 or three TF32 passes on tensor cores, FFMA at C = 8) and,
+    in f32, the FFMA bound."""
+
+    err: float
+    ms: float
+    plain_ms: float
+    bound_ms: float
+    bound_by: str
+    ffma_bound_ms: typing.Optional[float] = None
+
+
+def checked(name, dtype, work, err, ms, plain_ms,
+            tensor_cores=True) -> Check:
+    """The bounds of one check, printed as a ``[bound]`` line; a kernel
+    off the tensor cores (C = 8, either dtype) is bound by FFMA."""
+    if not tensor_cores:
+        f_ms, f_by = bound(*work, torch.float32)
+        say("bound", f"{name} {str(dtype)[6:]} (FFMA): bound {f_ms:.4f} ms "
+            f"({f_by}), kernel at {f_ms / ms:.1%} of it")
+        return Check(err, ms, plain_ms, f_ms, f_by, f_ms)
+    if dtype != torch.float32:
+        b_ms, b_by = bound(*work, dtype)
+        say("bound", f"{name} {str(dtype)[6:]}: bound {b_ms:.4f} ms "
+            f"({b_by}), kernel at {b_ms / ms:.1%} of it")
+        return Check(err, ms, plain_ms, b_ms, b_by)
+    b_ms, b_by = bound(*work, TF32X3)
+    f_ms, f_by = bound(*work, torch.float32)
+    say("bound", f"{name} float32: three-pass TF32 bound {b_ms:.4f} ms "
+        f"({b_by}), kernel at {b_ms / ms:.1%} of it; FFMA bound "
+        f"{f_ms:.4f} ms ({f_by}), kernel at {f_ms / ms:.1%} of it")
+    return Check(err, ms, plain_ms, b_ms, b_by, f_ms)
 
 
 def stage_work(weights, batch, t_in, t_out, dtype):
@@ -157,7 +206,8 @@ def stage_work(weights, batch, t_in, t_out, dtype):
     elt = torch.finfo(dtype).bits // 8
     out_bytes = batch * t_out * (4 if weights.has_post else c * elt)
     w_bytes = weights.b.numel() * 4 + (
-        weights.fragments.numel() * 4 if dtype == torch.bfloat16
+        weights.fragments.numel() * 4
+        if dtype == torch.bfloat16 and weights.fragments is not None
         else weights.w.numel() * 4
     )
     return flops, batch * weights.in_channels * t_in * elt + out_bytes + w_bytes
@@ -172,7 +222,8 @@ def resblock_work(c, t, b, k, dtype):
 
 def sass_counts(lib_path: Path) -> dict:
     """Tensor-core instructions per kernel of a built library, from
-    ``cuobjdump -sass``: {kernel: {"HMMA": n, "HGMMA": m}}."""
+    ``cuobjdump -sass``: {kernel: {"HMMA": n, "HGMMA": m, "TF32": t}},
+    ``t`` the HMMAs on TF32 operands."""
     from mimic3_tpu_torch.ops import build
 
     tool = Path(build.find_nvcc()).parent / "cuobjdump"
@@ -185,17 +236,26 @@ def sass_counts(lib_path: Path) -> dict:
         head = re.search(r"Function : (\S+)", line)
         if head:
             name = pretty_kernel(head.group(1))
-            counts[name] = {"HMMA": 0, "HGMMA": 0}
+            counts[name] = {"HMMA": 0, "HGMMA": 0, "TF32": 0}
         elif name is not None:
             for op in ("HGMMA", "HMMA"):
                 if re.search(rf"\b{op}\.", line):
                     counts[name][op] += 1
+            if re.search(r"\bHMMA\.\S*TF32", line):
+                counts[name]["TF32"] += 1
     return counts
 
 
+def is_f32_kernel(name: str) -> bool:
+    """The f32 tensor-core instantiations (``pretty_kernel`` names)."""
+    return name.startswith("stage_tf32_kernel<") or (
+        name.startswith("subblock_mma_kernel<") and name.endswith(",float>")
+    )
+
+
 def pretty_kernel(mangled: str) -> str:
-    """``subblock_mma_kernel<4>`` from its mangled name."""
-    m = re.search(r"\d+((?:stage|subblock)(?:_mma)?_kernel)I(.*?)EEv",
+    """``subblock_mma_kernel<4,float>`` from its mangled name."""
+    m = re.search(r"\d+((?:stage|subblock)(?:_mma|_tf32)?_kernel)I(.*?)EEv",
                   mangled)
     if not m:
         return mangled
@@ -279,13 +339,13 @@ def stage_inputs(rng, c, c_in, post, device):
 
 
 def check_stage(name, rng, c, c_in, post, batch, t, dtype):
-    """Kernel against plain; returns (max_abs_err, ms, plain_ms, bound_ms,
-    bound_by)."""
+    """Kernel against plain (a :class:`Check`)."""
     from mimic3_tpu_torch.ops import stage
 
     dev = torch.device("cuda")
     rb, kw = stage_inputs(rng, c, c_in, post, dev)
-    weights = stage.pack_stage_weights(rb, KERNELS, DILATIONS, device=dev, **kw)
+    weights = stage.pack_stage_weights(rb, KERNELS, DILATIONS, device=dev,
+                                       dtype=dtype, **kw)
     x = torch.from_numpy(
         rng.randn(batch, c_in or c, t).astype(np.float32)
     ).to(dev, dtype)
@@ -300,13 +360,11 @@ def check_stage(name, rng, c, c_in, post, batch, t, dtype):
 
     out = kernel()
     t_out = out.shape[-1]
-    bound_ms, bound_by = bound(*stage_work(weights, batch, t, t_out, dtype),
-                               dtype)
     err, ms, plain_ms = compare(f"stage: {name} x={tuple(x.shape)}", out,
                                 plain(), dtype, kernel, plain)
-    say("bound", f"stage: {name} {str(dtype)[6:]}: bound {bound_ms:.4f} ms "
-        f"({bound_by}), kernel at {bound_ms / ms:.1%} of it")
-    return err, ms, plain_ms, bound_ms, bound_by
+    return checked(f"stage: {name}", dtype,
+                   stage_work(weights, batch, t, t_out, dtype), err, ms,
+                   plain_ms, stage.uses_mma(c, dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -343,10 +401,8 @@ def check_resblock(rng, c, t, b, k, d, dtype, bias=True, iters=20):
             + ("" if bias else " no bias"))
     err, ms, plain_ms = compare(name, kernel(), plain(), dtype, kernel,
                                 plain, iters, residual=x)
-    bound_ms, bound_by = bound(*resblock_work(c, t, b, k, dtype), dtype)
-    say("bound", f"{name} {str(dtype)[6:]}: bound {bound_ms:.4f} ms "
-        f"({bound_by}), kernel at {bound_ms / ms:.1%} of it")
-    return err, ms, plain_ms, bound_ms, bound_by
+    return checked(name, dtype, resblock_work(c, t, b, k, dtype), err, ms,
+                   plain_ms, resblock.uses_mma(c, dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -456,7 +512,8 @@ def http(base, path, data=None, timeout=300):
 
 
 def main_path(root, voice_dir, plain_dir, card_line):
-    """Engine, batch and CLI (phases 6-8).  Returns the stage launches."""
+    """Engine, batch and CLI (phases 6-8).  Returns (the stage launches,
+    the f32 stage launches of one deterministic call)."""
     from mimic3_tpu_torch.engine import Mimic3Settings, Mimic3TextToSpeechSystem
     from mimic3_tpu_torch.ops import stage
     from mimic3_tpu_torch.runtime.voice import load_from_directory
@@ -469,12 +526,33 @@ def main_path(root, voice_dir, plain_dir, card_line):
     det.voice = "en_US/test_low"
     det_wav = parse_wav(det.text_to_wav(TEXT))
     n_det = stage.launches
+    # two more calls: the first set the session's frame estimate, so these
+    # two take the same decode path; the f32 kernel has no atomics and a
+    # fixed summation order, so their WAVs agree bit for bit
+    wavs, per_call = [], []
+    for _ in range(2):
+        before = stage.launches
+        wavs.append(det.text_to_wav(TEXT))
+        per_call.append(stage.launches - before)
+    fused = len(load_from_directory(voice_dir,
+                                    deterministic=True).session.stage_weights)
+    first = parse_wav(wavs[0]).tobytes() == det_wav.tobytes()
+    say("main", f"deterministic (f32 decoder): two more calls "
+        f"{'bitwise equal' if wavs[0] == wavs[1] else 'DIFFER'} "
+        f"({len(wavs[0])} WAV bytes; the first call "
+        f"{'equal' if first else 'not equal'}); f32 stage launches per "
+        f"call {per_call}, fused f32 stages at the gate {fused}")
+    if wavs[0] != wavs[1]:
+        raise AssertionError("two deterministic calls gave different WAVs")
+    if per_call != [fused, fused] or fused < 1:
+        raise AssertionError("f32 stage launches per call do not match "
+                             "the gate")
     default = Mimic3TextToSpeechSystem(
         Mimic3Settings(voices_directories=[str(root)], seed=7)
     )
     default.voice = "en_US/test_low"
     def_wav = parse_wav(default.text_to_wav(TEXT))
-    n_default = stage.launches - n_det
+    n_default = stage.launches - n_det - sum(per_call)
     voice = load_from_directory(voice_dir)
     batch_ids = [phoneme_ids(voice, t) for t in BATCH_TEXTS]
     before = stage.launches
@@ -542,7 +620,17 @@ def main_path(root, voice_dir, plain_dir, card_line):
             say("time", f"{label} path, default mode, batch {batch}: "
                 f"{wall * 1000:.1f} ms per call, {rate:.1f} audio-s/s "
                 f"({card_line})")
-    return launches
+    # deterministic mode: the f32 decoder, its last stage on the TF32
+    # kernel (kernel path) or on cuDNN (plain path)
+    for label, d in (("kernel", voice_dir), ("plain", plain_dir)):
+        session = load_from_directory(d, deterministic=True).session
+        for batch in (1, 4):
+            wall, rate = time_session(session, batch_ids[:batch], 5)
+            dev_ms = device_ms_per_call(session, batch_ids[:batch])
+            say("time", f"{label} path, deterministic mode (f32 decoder), "
+                f"batch {batch}: {wall * 1000:.1f} ms per call, {rate:.1f} "
+                f"audio-s/s, device {dev_ms:.2f} ms per call ({card_line})")
+    return launches, fused
 
 
 def profile_path():
@@ -1628,15 +1716,23 @@ def main() -> int:
             + " | ".join(regs))
         counts = sass_counts(module.library_path())
         say("sass", f"{module.library_path().name}: " + "; ".join(
-            f"{k}: HMMA {v['HMMA']}, HGMMA {v['HGMMA']}"
+            f"{k}: HMMA {v['HMMA']} (TF32 {v['TF32']}), HGMMA {v['HGMMA']}"
             for k, v in sorted(counts.items())
         ))
         sass[module] = {op: sum(v[op] for v in counts.values())
-                        for op in ("HMMA", "HGMMA")}
+                        for op in ("HMMA", "HGMMA", "TF32")}
         if not sass[module]["HMMA"] + sass[module]["HGMMA"]:
             raise AssertionError(
                 f"{module.library_path().name} has no tensor-core "
                 "instruction"
+            )
+        # the f32 paths must run on TF32 tensor cores, not fall to FFMA
+        f32_kernels = [k for k in counts if is_f32_kernel(k)]
+        if not f32_kernels or any(counts[k]["TF32"] == 0
+                                  for k in f32_kernels):
+            raise AssertionError(
+                f"{module.library_path().name}: an f32 instantiation has no "
+                f"TF32 HMMA ({f32_kernels})"
             )
 
     # -- 3. stage kernel against plain ---------------------------------------------
@@ -1650,34 +1746,61 @@ def main() -> int:
                     f"last stage ups+stage+post, {frames} frames, B={batch}",
                     rng, 32, 64, True, batch, t_in, dtype,
                 )
-    # the gate sweep: the C=64 stage with its upsampler 128 -> 64, in bf16
-    for frames in FRAME_BUCKETS:
-        for batch in (1, 4):
-            stage_results[(64, frames, batch, torch.bfloat16)] = check_stage(
-                f"C=64 stage ups 128->64, {frames} frames, B={batch}",
-                rng, 64, 128, False, batch, frames * 64, torch.bfloat16,
-            )
+    # the gate sweep: the C=64 stage with its upsampler 128 -> 64
+    for dtype in (torch.float32, torch.bfloat16):
+        for frames in FRAME_BUCKETS:
+            for batch in (1, 4):
+                stage_results[(64, frames, batch, dtype)] = check_stage(
+                    f"C=64 stage ups 128->64, {frames} frames, B={batch}",
+                    rng, 64, 128, False, batch, frames * 64, dtype,
+                )
     for dtype in (torch.float32, torch.bfloat16):
         check_stage("C=64 stage alone, 256 frames, B=1", rng, 64, None,
                     False, 1, 256 * 128, dtype)
-    check_stage("last stage, ragged length", rng, 32, 64, True, 1, 12345,
-                torch.float32)
-    check_stage("last stage, ragged length", rng, 32, 64, True, 1, 12345,
-                torch.bfloat16)
-    # the bf16 gate: the widest C at which the kernel is no slower than
-    # plain at B=1 and B=4 in both frame buckets
-    gate = 0
-    for c in (32, 64):
-        wins = [stage_results[(c, f, b, torch.bfloat16)][1]
-                <= stage_results[(c, f, b, torch.bfloat16)][2]
-                for f in FRAME_BUCKETS for b in (1, 4)]
-        say("gate", f"bf16 C={c}: kernel no slower than plain in "
-            f"{sum(wins)} of {len(wins)} cases (128/256 frames x B=1/4)")
-        if not all(wins):
-            break
-        gate = c
-    say("gate", f"bf16 stage_max_channels from this sweep: {gate} (the "
-        f"session's default: {STAGE_MAX_CHANNELS[torch.bfloat16]})")
+    for dtype in (torch.float32, torch.bfloat16):
+        check_stage("last stage, ragged length", rng, 32, 64, True, 1, 12345,
+                    dtype)
+        # C = 8, under the MMA depth: the FFMA kernel (stage_kernel), as
+        # a voice with a narrow last stage gives it, then a ragged length
+        check_stage("C=8 last stage ups 16->8+stage+post", rng, 8, 16, True,
+                    1, 128 * 128, dtype)
+        check_stage("C=8 last stage, ragged length", rng, 8, 16, True, 2,
+                    12345, dtype)
+    # each dtype's gate: the widest C at which the kernel is no slower
+    # than plain at B=1 and B=4 in both frame buckets.  cuDNN's plain
+    # times move between runs, so the session's gate is held to the sweep
+    # within GATE_NOISE: it fails only if the kernel loses by more than
+    # that at or below the gate, or wins by more than that in every case
+    # one stage above it
+    gates = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        gates[dtype] = 0
+        held = STAGE_MAX_CHANNELS[dtype]
+        all_won = True  # at every swept C so far
+        for c in (32, 64):
+            ratios = [stage_results[(c, f, b, dtype)].ms
+                      / stage_results[(c, f, b, dtype)].plain_ms
+                      for f in FRAME_BUCKETS for b in (1, 4)]
+            wins = sum(r <= 1 for r in ratios)
+            say("gate", f"{name} C={c}: kernel no slower than plain in "
+                f"{wins} of {len(ratios)} cases (128/256 frames x B=1/4; "
+                "kernel/plain " + ", ".join(f"{r:.3f}" for r in ratios)
+                + ")")
+            all_won = all_won and wins == len(ratios)
+            if all_won:
+                gates[dtype] = c
+            if c <= held and max(ratios) > GATE_NOISE:
+                raise AssertionError(
+                    f"the {name} stage gate {held} engages C={c}, where the "
+                    f"kernel loses to plain by more than {GATE_NOISE}x")
+            if c > held and max(ratios) * GATE_NOISE < 1:
+                raise AssertionError(
+                    f"the {name} stage gate {held} leaves out C={c}, where "
+                    f"the kernel beats plain by more than {GATE_NOISE}x")
+        say("gate", f"{name} stage_max_channels from this sweep: "
+            f"{gates[dtype]} (the session's default: {held}; held to the "
+            f"sweep within {GATE_NOISE}x)")
 
     # -- 4. resblock kernel against plain -------------------------------------------
     # the cases of tests/test_pallas_ops.py, a ragged T, no bias, then C
@@ -1691,9 +1814,10 @@ def main() -> int:
         check_resblock(rng, 64, 1000, 2, 7, 3, dtype, bias=False)
         for c, t in ((32, 65536), (64, 32768), (128, 16384), (256, 2048)):
             check_resblock(rng, c, t, 1, 11, 5, dtype)
-    res_result = check_resblock(
-        rng, 128, 65536, 16, 3, 5, torch.bfloat16, iters=5
-    )
+    res_results = {
+        dtype: check_resblock(rng, 128, 65536, 16, 3, 5, dtype, iters=5)
+        for dtype in (torch.float32, torch.bfloat16)
+    }
 
     # -- 5-14. the paths -------------------------------------------------------------
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
@@ -1702,7 +1826,9 @@ def main() -> int:
         voice_dir, plain_dir = make_voices(root)
         say("voice", f"full-width *_low test voice (random weights, seed "
             f"1234) in {time.perf_counter() - t0:.1f} s")
-        launches = {"main": main_path(root, voice_dir, plain_dir, card_line)}
+        launches = {}
+        launches["main"], det_launches = main_path(root, voice_dir,
+                                                   plain_dir, card_line)
         res_launches, _ = profile_path()
         launches["streaming"] = streaming_path(voice_dir, card_line)
         launches["server"] = server_path(root, card_line)
@@ -1715,14 +1841,16 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    # the default (bf16) main path's last stage: 128 frames, B=1
-    stage_row = stage_results[(32, 128, 1, torch.bfloat16)]
+    # the default (bf16) main path's last stage: 128 frames, B=1; the
+    # deterministic (f32) main path's the same shape in f32
     rows = []
-    for module, name, source, replaces, n, (err, ms, plain_ms, b_ms, b_by) in (
+    for module, name, source, replaces, n, row, f32_row in (
         (stage, "hifigan_stage_fused", "stage.cu", "stage.py:399",
-         sum(launches.values()), stage_row),
+         sum(launches.values()), stage_results[(32, 128, 1, torch.bfloat16)],
+         stage_results[(32, 128, 1, torch.float32)]),
         (resblock, "fused_resblock_subblock", "resblock.cu",
-         "resblock.py:136", res_launches, res_result),
+         "resblock.py:136", res_launches, res_results[torch.bfloat16],
+         res_results[torch.float32]),
     ):
         rows.append({
             "name": name,
@@ -1730,19 +1858,27 @@ def main() -> int:
             "source": f"mimic3_tpu_torch/csrc/{source}",
             "replaces": f"mimic3_tpu/ops/{replaces}",
             "launches": n,
-            "max_abs_err": err,
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": b_ms,
-            "bound_by": b_by,
-            "bound_share": b_ms / ms,
+            "max_abs_err": row.err,
+            "ms": row.ms,
+            "plain_ms": row.plain_ms,
+            "bound_ms": row.bound_ms,
+            "bound_by": row.bound_by,
+            "bound_share": row.bound_ms / row.ms,
             # no single PyTorch call computes either function: the plain
             # version's cuDNN chain is the library yardstick
-            "library_ms": plain_ms,
+            "library_ms": row.plain_ms,
             "tensor_core_instructions": sass[module],
+            # the f32 path (three TF32 passes) at the same shape
+            "f32_ms": f32_row.ms,
+            "f32_plain_ms": f32_row.plain_ms,
+            "f32_max_abs_err": f32_row.err,
+            "f32_bound_ms": f32_row.bound_ms,
+            "f32_ffma_bound_ms": f32_row.ffma_bound_ms,
+            "f32_stage_gate": gates[torch.float32],
         })
     rows[0]["launches_by_path"] = launches
-    rows[0]["bf16_stage_gate"] = gate
+    rows[0]["bf16_stage_gate"] = gates[torch.bfloat16]
+    rows[0]["f32_launches_per_deterministic_call"] = det_launches
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

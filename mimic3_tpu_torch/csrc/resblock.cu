@@ -16,32 +16,39 @@
 // against 2*C activations read and C written (at C = 128, K = 3 in bf16,
 // 384 FLOPs per byte), so it is bound by operations, not by memory.
 //
-// Two paths:
+// Three paths, by dtype and C (ops/resblock.py says which reaches which):
 //
-// - bf16, C >= 16: tensor cores (subblock_mma_kernel).  Each conv is the
-//   implicit GEMM of csrc/conv_tile.cuh: lrelu(x) and the intermediate h
-//   sit in shared memory as [positions][C] bf16 (transposed once on the
-//   global load), A fragments come from ldmatrix at the tap's row offset,
-//   the weights from fragments packed on the host, and mma.sync.m16n8k16
-//   sums in f32.  The first conv's epilogue adds the bias, applies lrelu,
-//   zeroes rows outside [0, T) (torch's zero padding) and rounds h to
-//   bf16; the second conv's adds the bias into an f32 tile in shared
-//   memory, transposed back so that the residual add and the store are
-//   coalesced.  A block is (time tile, batch row, output-channel group):
-//   every group recomputes all of h for its tile, which is cheap next to
-//   idle SMs when T is short (C = 256, T = 2048).  The wrapper
-//   (ops/resblock.py) picks the rows per block and the number of groups
-//   from a model of waves and warp items, so that the grid fills the card.
-//   The first conv's rows are a multiple of 32 and the tile is those rows
-//   less the second halo, so only the second conv rounds up.
-//   What bounds it now: issue of ldmatrix, weight loads and MMAs from one
-//   or two 8-warp blocks per SM (mma.sync, not wgmma), and the recompute
-//   of h.
-// - f32 (and bf16 below C = 16, under the MMA depth): FFMA
-//   (subblock_kernel), as before.  f32 FMAs plus the shared-memory
-//   activation reads and L1 weight reads that feed them bound it.
-//
-// FFMA design (simple and correct first):
+// - C >= 16, bf16 or f32: tensor cores (subblock_mma_kernel<NW, T>).
+//   Each conv is the implicit GEMM of csrc/conv_tile.cuh: lrelu(x) and the
+//   intermediate h sit in shared memory as [positions][C] in x's dtype
+//   (transposed once on the global load), A fragments come from ldmatrix
+//   at the tap's row offset, the weights from fragments packed on the
+//   host.  bf16: mma.sync.m16n8k16, h rounded to bf16 as on the TPU.
+//   f32: three TF32 passes of mma.sync.m16n8k8 (explicit in the kernel's
+//   instructions, f32-accurate by the hi/lo split; torch's TF32 switches
+//   govern cuDNN only), h kept in f32 and rounded nowhere.  Sums are f32
+//   either way.  The first conv's epilogue adds the bias, applies lrelu
+//   and zeroes rows outside [0, T) (torch's zero padding); the second
+//   conv's adds the bias into an f32 tile in shared memory, transposed
+//   back so that the residual add and the store are coalesced.  A block
+//   is (time tile, batch row, output-channel group): every group
+//   recomputes all of h for its tile, which is cheap next to idle SMs
+//   when T is short (C = 256, T = 2048).  The wrapper (ops/resblock.py)
+//   picks the rows per block and the number of groups from a model of
+//   waves and warp items, so that the grid fills the card.  The first
+//   conv's rows are a multiple of 32 and the tile is those rows less the
+//   second halo, so only the second conv rounds up.
+//   What bounds it: issue of ldmatrix, weight loads and MMAs from one or
+//   two 8-warp blocks per SM (mma.sync, not wgmma), and the recompute of
+//   h.  In f32 each FLOP costs six times the MMA issue and four times the
+//   weight bytes of bf16, and the buffers twice the shared memory, so
+//   rows per block halve; each K chunk's three passes go to a fresh
+//   accumulator added with FADD, which keeps the sums f32-accurate.
+// - C = 8 (under the MMA depth), either dtype: FFMA (subblock_kernel).
+//   f32 FMAs plus the shared-memory activation reads and L1 weight reads
+//   that feed them bound it.
+
+// FFMA design (C = 8; simple and correct first):
 // - one block per (batch row, time tile).  The tile plus the exact halos
 //   (d*(K-1)/2 for the first conv, (K-1)/2 for the second) of lrelu(x) is
 //   loaded into shared memory as f32, then the first conv writes the
@@ -50,12 +57,11 @@
 //   and no tiling constraint on T: the last tile is masked;
 // - the wrapper picks the time tile from C and the halo so that two
 //   blocks fit in an SM's shared memory where a tile of 64 allows, else
-//   one (C = 256, K = 11, d = 5: tile 64, 203 KB);
+//   one;
 // - a warp computes 8 output channels at 128 positions (4 per lane), so
 //   its weight reads are warp-uniform float4 broadcasts (two loads feed
 //   32 FMAs) and its activation reads are conflict-free.  The 8 warps of
-//   a block walk over the (channel group, position chunk) items, so any C
-//   that is a multiple of 8 up to 256 works with one launch shape;
+//   a block walk over the (channel group, position chunk) items;
 // - weights arrive rounded to x's dtype and widened to f32; bf16
 //   activations are loaded and stored as bf16; all math is f32.
 
@@ -239,7 +245,7 @@ cudaError_t launch(const void* x, void* out, const float* w1, const float* b1,
 
 
 // ---------------------------------------------------------------------------
-// bf16 on tensor cores
+// Tensor cores: bf16 (m16n8k16) and f32 (three TF32 passes of m16n8k8)
 // ---------------------------------------------------------------------------
 
 constexpr int kMmaThreads = 256;
@@ -252,14 +258,17 @@ __host__ __device__ __forceinline__ int round_up(int v, int m) {
 }
 
 // Shared-memory plan of one block (bytes), shared by kernel and launcher:
-// h [rh][ld] bf16, then a region that holds lrelu(x) [ra][ld] bf16 during
-// the first conv and the second conv's f32 branch [cg][m2 + 4] after it.
+// h [rh][ld] T, then a region that holds lrelu(x) [ra][ld] T during the
+// first conv and the second conv's f32 branch [cg][m2 + 4] after it.  T
+// is bf16 (elt 2, ld = cp + 8) or f32 (elt 4, ld = cp + 4): rows 16 bytes
+// past a multiple of 32, so ldmatrix's eight rows hit eight bank groups.
 struct MmaPlan {
   int cp, ld, h1, h2, tile, m2, rh, ra, cg, ldo;
   size_t h_bytes, smem;
-  __host__ __device__ MmaPlan(int c, int k, int dil, int m1, int groups) {
+  __host__ __device__ MmaPlan(int c, int k, int dil, int m1, int groups,
+                              int elt) {
     cp = round_up(c, 16);
-    ld = cp + 8;
+    ld = cp + 16 / elt;
     h1 = dil * (k - 1) / 2;
     h2 = (k - 1) / 2;
     tile = m1 - 2 * h2;
@@ -268,35 +277,63 @@ struct MmaPlan {
     ra = m1 + 2 * h1;
     cg = cp / groups;
     ldo = m2 + 4;  // 2 * ldo % 32 == 8: the transposed writes spread banks
-    h_bytes = (size_t)rh * ld * 2;
-    const size_t a_bytes = (size_t)ra * ld * 2;
+    h_bytes = (size_t)rh * ld * elt;
+    const size_t a_bytes = (size_t)ra * ld * elt;
     const size_t o_bytes = (size_t)cg * ldo * 4;
     smem = h_bytes + (a_bytes > o_bytes ? a_bytes : o_bytes);
   }
 };
 
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float v0, float v1) {
+  *reinterpret_cast<uint32_t*>(p) = conv_tile::pack_bf16x2(v0, v1);
+}
+__device__ __forceinline__ void store2(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+
+// acc += one conv over a warp item, on the operand type's tile: bf16
+// fragments (ops/mma.py pack_conv_fragments, kcs = cp / 16, N-tile pairs)
+// or TF32 hi/lo fragments (pack_conv_fragments_tf32, kcs = cp / 8, N
+// tiles).  n0 is the item's first output channel.
 template <int NW>
+__device__ __forceinline__ void item_conv(float (&acc)[kMW][NW][4],
+                                          const __nv_bfloat16* act, int ld,
+                                          int r0, int k, int dil, int cp,
+                                          const uint4* __restrict__ w,
+                                          int n0) {
+  conv_tile::conv_mma<kMW, NW, false>(acc, act, ld, r0, k, dil, cp / 16, w,
+                                      cp / 16, n0 / 16);
+}
+template <int NW>
+__device__ __forceinline__ void item_conv(float (&acc)[kMW][NW][4],
+                                          const float* act, int ld, int r0,
+                                          int k, int dil, int cp,
+                                          const uint4* __restrict__ w,
+                                          int n0) {
+  conv_tile::conv_tf32<kMW, NW, false>(acc, act, ld, r0, k, dil, cp / 8, w,
+                                       cp / 8, n0 / 8);
+}
+
+template <int NW, typename T>
 __global__ void __launch_bounds__(kMmaThreads, 2)
-    subblock_mma_kernel(const __nv_bfloat16* __restrict__ x,
-                        __nv_bfloat16* __restrict__ out,
+    subblock_mma_kernel(const T* __restrict__ x, T* __restrict__ out,
                         const uint4* __restrict__ w1,
                         const float* __restrict__ b1,
                         const uint4* __restrict__ w2,
-                        const float* __restrict__ b2, int c, int T, int k,
+                        const float* __restrict__ b2, int c, int T_len, int k,
                         int dil, int m1, int groups) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const MmaPlan p(c, k, dil, m1, groups);
-  __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* a = reinterpret_cast<__nv_bfloat16*>(smem_raw + p.h_bytes);
+  const MmaPlan p(c, k, dil, m1, groups, sizeof(T));
+  T* h = reinterpret_cast<T*>(smem_raw);
+  T* a = reinterpret_cast<T*>(smem_raw + p.h_bytes);
   float* o = reinterpret_cast<float*>(smem_raw + p.h_bytes);
-  const int kcs = p.cp / 16;
   const int row = blockIdx.y;
   const int group = blockIdx.z;
   const int t0 = blockIdx.x * p.tile;
   const int pos_h = t0 - p.h2;     // sequence position of h row 0
   const int pos_a = pos_h - p.h1;  // sequence position of a row 0
-  const __nv_bfloat16* xb = x + (size_t)row * c * T;
-  __nv_bfloat16* ob = out + (size_t)row * c * T;
+  const T* xb = x + (size_t)row * c * T_len;
+  T* ob = out + (size_t)row * c * T_len;
 
   // lrelu(x) -> a, transposed to [position][channel]; a thread takes two
   // channels of one position, neighbouring threads neighbouring positions
@@ -307,13 +344,11 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     const int t = pos_a + r;
     const int ci = 2 * cpair;
     float v0 = 0.f, v1 = 0.f;
-    if (t >= 0 && t < T) {
-      if (ci < c) v0 = lrelu(__bfloat162float(xb[(size_t)ci * T + t]));
-      if (ci + 1 < c)
-        v1 = lrelu(__bfloat162float(xb[(size_t)(ci + 1) * T + t]));
+    if (t >= 0 && t < T_len) {
+      if (ci < c) v0 = lrelu(load_f(xb + (size_t)ci * T_len + t));
+      if (ci + 1 < c) v1 = lrelu(load_f(xb + (size_t)(ci + 1) * T_len + t));
     }
-    *reinterpret_cast<uint32_t*>(a + r * p.ld + ci) =
-        conv_tile::pack_bf16x2(v0, v1);
+    store2(a + r * p.ld + ci, v0, v1);
   }
   __syncthreads();
 
@@ -332,8 +367,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     }
     float acc[kMW][NW][4];
     conv_tile::zero(acc);
-    conv_tile::conv_mma<kMW, NW, false>(acc, a, p.ld, r0, k, dil, kcs, w1,
-                                        kcs, n0 / 16);
+    item_conv<NW>(acc, a, p.ld, r0, k, dil, p.cp, w1, n0);
 #pragma unroll
     for (int mi = 0; mi < kMW; ++mi)
 #pragma unroll
@@ -343,12 +377,11 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
           const int r = r0 + conv_tile::acc_row(mi, e);
           const int co = n0 + conv_tile::acc_col(ni, e);
           const int t = pos_h + r;
-          const bool inside = t >= 0 && t < T;
+          const bool inside = t >= 0 && t < T_len;
           const float v0 = inside ? lrelu(acc[mi][ni][e] + bias[ni][0]) : 0.f;
           const float v1 =
               inside ? lrelu(acc[mi][ni][e + 1] + bias[ni][1]) : 0.f;
-          *reinterpret_cast<uint32_t*>(h + r * p.ld + co) =
-              conv_tile::pack_bf16x2(v0, v1);
+          store2(h + r * p.ld + co, v0, v1);  // bf16: rounded, f32: exact
         }
   }
   __syncthreads();  // h complete; a is dead, o takes its place
@@ -367,8 +400,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     }
     float acc[kMW][NW][4];
     conv_tile::zero(acc);
-    conv_tile::conv_mma<kMW, NW, false>(acc, h, p.ld, r0, k, 1, kcs, w2,
-                                        kcs, (cg0 + n0) / 16);
+    item_conv<NW>(acc, h, p.ld, r0, k, 1, p.cp, w2, cg0 + n0);
 #pragma unroll
     for (int mi = 0; mi < kMW; ++mi)
 #pragma unroll
@@ -383,46 +415,49 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   __syncthreads();
 
   // residual add and store, coalesced along time
-  const int n = min(p.tile, T - t0);
+  const int n = min(p.tile, T_len - t0);
   const int cg = min(p.cg, c - cg0);
   for (int idx = threadIdx.x; idx < cg * n; idx += kMmaThreads) {
     const int co = idx / n;
     const int i = idx - co * n;
-    const size_t g = (size_t)(cg0 + co) * T + t0 + i;
-    ob[g] = __float2bfloat16(__bfloat162float(xb[g]) + o[co * p.ldo + i]);
+    const size_t g = (size_t)(cg0 + co) * T_len + t0 + i;
+    store_f(ob + g, load_f(xb + g) + o[co * p.ldo + i]);
   }
 }
 
-template <int NW>
+template <int NW, typename T>
 cudaError_t launch_mma(const void* x, void* out, const void* w1,
                        const float* b1, const void* w2, const float* b2,
-                       int batch, int c, int T, int k, int dil, int m1,
+                       int batch, int c, int T_len, int k, int dil, int m1,
                        int groups, cudaStream_t stream) {
-  auto kernel = subblock_mma_kernel<NW>;
-  const MmaPlan p(c, k, dil, m1, groups);
+  auto kernel = subblock_mma_kernel<NW, T>;
+  const MmaPlan p(c, k, dil, m1, groups, sizeof(T));
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((T + p.tile - 1) / p.tile, batch, groups);
+  const dim3 grid((T_len + p.tile - 1) / p.tile, batch, groups);
   kernel<<<grid, kMmaThreads, p.smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out),
+      static_cast<const T*>(x), static_cast<T*>(out),
       static_cast<const uint4*>(w1), b1, static_cast<const uint4*>(w2), b2, c,
-      T, k, dil, m1, groups);
+      T_len, k, dil, m1, groups);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  Returns a cudaError_t value:
-// 0 when the launch was accepted.
+// Plain C entry points (bound with ctypes).  Each returns a cudaError_t
+// value: 0 when the launch was accepted.
+//
+// FFMA, C = 8 (under the MMA depth of both tensor-core paths), f32 or
+// bf16 (is_bf16); from 16 channels resblock_subblock_mma_launch.
 extern "C" int resblock_subblock_launch(const void* x, void* out,
                                         const void* w1, const void* b1,
                                         const void* w2, const void* b2,
                                         int batch, int c, int T, int k,
                                         int dil, int tile, int is_bf16,
                                         void* stream) {
-  if (c <= 0 || c % kCoT != 0 || c > kMaxChannels || T <= 0 || k <= 0 ||
-      k % 2 == 0 || dil <= 0 || tile <= 0 || batch <= 0)
+  if (c != kCoT || T <= 0 || k <= 0 || k % 2 == 0 || dil <= 0 || tile <= 0 ||
+      batch <= 0)
     return (int)cudaErrorInvalidValue;
   const float* w1f = static_cast<const float*>(w1);
   const float* b1f = static_cast<const float*>(b1);
@@ -436,16 +471,18 @@ extern "C" int resblock_subblock_launch(const void* x, void* out,
                             tile, st);
 }
 
-// bf16 on tensor cores.  w1, w2: fragments packed by ops/mma.py for C
-// padded to a multiple of 16; b1, b2: f32, padded likewise.  m1: rows of
-// the first conv per block (a multiple of 32 above 2 * ((K - 1) / 2));
-// groups: output-channel groups per tile.
+// Tensor cores, C from 16: bf16 (is_bf16 = 1; w1, w2 packed by ops/mma.py
+// pack_conv_fragments) or f32 (is_bf16 = 0; three TF32 passes, w1, w2
+// packed by pack_conv_fragments_tf32), both for C padded to a multiple of
+// 16; b1, b2: f32, padded likewise.  m1: rows of the first conv per block
+// (a multiple of 32 above 2 * ((K - 1) / 2)); groups: output-channel
+// groups per tile.
 extern "C" int resblock_subblock_mma_launch(const void* x, void* out,
                                             const void* w1, const void* b1,
                                             const void* w2, const void* b2,
                                             int batch, int c, int T, int k,
                                             int dil, int m1, int groups,
-                                            void* stream) {
+                                            int is_bf16, void* stream) {
   const int cp = round_up(c, 16);
   if (c < 16 || c > kMaxChannels || T <= 0 || k <= 0 || k % 2 == 0 ||
       dil <= 0 || batch <= 0 || m1 <= 0 || m1 % kRows != 0 ||
@@ -455,9 +492,16 @@ extern "C" int resblock_subblock_mma_launch(const void* x, void* out,
   const float* b1f = static_cast<const float*>(b1);
   const float* b2f = static_cast<const float*>(b2);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((cp / groups) % 32 == 0)
-    return (int)launch_mma<4>(x, out, w1, b1f, w2, b2f, batch, c, T, k, dil,
-                              m1, groups, st);
-  return (int)launch_mma<2>(x, out, w1, b1f, w2, b2f, batch, c, T, k, dil,
-                            m1, groups, st);
+  const bool nw4 = (cp / groups) % 32 == 0;
+  if (is_bf16)
+    return (int)(nw4 ? launch_mma<4, __nv_bfloat16>(x, out, w1, b1f, w2, b2f,
+                                                    batch, c, T, k, dil, m1,
+                                                    groups, st)
+                     : launch_mma<2, __nv_bfloat16>(x, out, w1, b1f, w2, b2f,
+                                                    batch, c, T, k, dil, m1,
+                                                    groups, st));
+  return (int)(nw4 ? launch_mma<4, float>(x, out, w1, b1f, w2, b2f, batch, c,
+                                          T, k, dil, m1, groups, st)
+                   : launch_mma<2, float>(x, out, w1, b1f, w2, b2f, batch, c,
+                                          T, k, dil, m1, groups, st));
 }

@@ -20,7 +20,7 @@
 // kernels 3/7/11) against only its input and output bytes, so it is
 // bound by operations.
 //
-// Two paths:
+// Three paths, by dtype and C (ops/stage.py says which reaches which):
 //
 // - bf16, C in {16, 32, 64}: every resblock conv on tensor cores
 //   (stage_mma_kernel), the implicit-GEMM tile of csrc/conv_tile.cuh.
@@ -48,12 +48,32 @@
 //   parts out, PERF.md): the MMA loop (mma.sync, not wgmma, 16-row items)
 //   takes about half the time, the FFMA upsampler about a fifth, the
 //   epilogues, barriers and staging the rest.
-// - f32 (and bf16 at C = 8, under the MMA depth): FFMA (stage_kernel), as
-//   before.  Measured on an H100 80GB HBM3 (700 W) for the last decoder
-//   stage, x = [1, 64, 32768] f32: 1.56 ms, about 25% of the 67 TFLOP/s
-//   f32 peak counting the 1.49x halo recompute.
-//
-// FFMA design (simple and correct first):
+// - f32, C in {16, 32, 64}: the same stage on tensor cores in three TF32
+//   passes (stage_tf32_kernel; conv_tile.cuh says why three and how the
+//   sums stay f32-accurate).  The TF32 here is explicit in the kernel's
+//   instructions; torch's TF32 switches govern cuDNN only.  Its buffers
+//   are f32 [rows][C + 4] and nothing is rounded below f32, so it holds
+//   the port's f32 bar.  What bounds it: per FLOP the TF32 tile issues six
+//   times the MMAs and reads four times the weight bytes of the bf16 one,
+//   and the f32 buffers take twice the shared memory, so tiles are
+//   shorter.  What the design does about it: a warp keeps two 16-row M
+//   tiles' accumulators across a conv's taps, so each B fragment read
+//   feeds both; each K chunk's three passes land in a fresh accumulator
+//   added with FADD (a running MMA accumulator loses up to an ulp of the
+//   sum at every MMA, which missed the bar at C = 64); weights come
+//   through the read-only cache (a tap is 8 KB at C = 32, shared by the
+//   block's 16 warps; a cp.async ring was slower at B = 4).  At C = 64
+//   the tile is short (about 100 rows against a 120-row halo) and cuDNN
+//   is faster, so the f32 gate stops at 32.  Measured on an H100 80GB
+//   HBM3 (700.00 W) for the last decoder stage, x = [1, 64, 16384] f32
+//   (128 frames; chip_smoke.py): 0.412 ms against 2.191 ms for the plain
+//   cuDNN path, 13% of the 0.053 ms three-pass TF32 bound and 32% of the
+//   0.130 ms FFMA bound.  Taking
+//   the MMAs out (scripts/ablate_stage.py) leaves 0.07-0.08 ms: the
+//   mma.sync loop is 80-87% of the kernel.
+// - C = 8 (under the MMA depth), either dtype: FFMA (stage_kernel).
+
+// FFMA design (C = 8; simple and correct first):
 // - one thread block per (batch row, time tile); the tile plus a halo of
 //   the stage's receptive field (60 samples for k = 11, d = 1/3/5, + 3 for
 //   conv_post) is loaded once into shared memory as f32.  The upsampler
@@ -63,9 +83,9 @@
 //   conv1 output, running sum over resblocks.  Every conv is computed
 //   over the whole haloed tile; errors from the buffer edge creep inward
 //   by one conv padding per conv and never reach the tile's centre;
-// - each thread computes 8 output channels at 4 positions (2 at C = 64)
-//   in registers; weights are laid out [Cin][K][Cout] and read as float4,
-//   warp-uniform, so one load feeds 16 FMAs;
+// - each thread computes 8 output channels at 4 positions in registers;
+//   weights are laid out [Cin][K][Cout] and read as float4, warp-uniform,
+//   so one load feeds 16 FMAs;
 // - bf16 activations are loaded and stored as bf16, all math is f32.
 
 #include <cuda_bf16.h>
@@ -317,31 +337,9 @@ cudaError_t launch(const void* x, void* out, const float* w, const float* b,
   return cudaGetLastError();
 }
 
-// the f32 FFMA kernel, by channel count
-cudaError_t dispatch(int c, const void* x, void* out, const float* w,
-                     const float* b, const int4* plan, int batch, int c_in,
-                     int t_in, int T, int n_res, int n_steps, int ups_k,
-                     int ups_stride, int ups_pad, int has_post, int tile,
-                     int halo, cudaStream_t stream) {
-#define STAGE_CASE(CH)                                                     \
-  case CH:                                                                 \
-    return launch<CH, float>(x, out, w, b, plan, batch, c_in, t_in, T,     \
-                            n_res, n_steps, ups_k, ups_stride, ups_pad,    \
-                            has_post, tile, halo, stream);
-  switch (c) {
-    STAGE_CASE(8)
-    STAGE_CASE(16)
-    STAGE_CASE(32)
-    STAGE_CASE(64)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef STAGE_CASE
-}
-
 
 // ---------------------------------------------------------------------------
-// bf16 on tensor cores
+// Tensor cores: the block plan and the phases both paths share
 // ---------------------------------------------------------------------------
 
 // Warps of a block (one block per SM): 16 at C <= 32, 12 at C = 64 (the
@@ -358,85 +356,98 @@ constexpr int kItemRows = 16;
 // a whole number of 16-row MMA tiles, so buffers carry 16 rows of slack
 // past L = tile + 2 * halo; rows past a conv's needed range feed only
 // rows past the next conv's.
-//   x0 [lb][ld] bf16   stage input (the upsampler's output when fused)
-//   s  [lb][ld] bf16   resblock state
-//   u  [lb][ld] bf16   lrelu(conv1 + b), the second conv's operand
+//   x0 [lb][ld] T      stage input (the upsampler's output when fused)
+//   s  [lb][ld] T      resblock state
+//   u  [lb][ld] T      lrelu(conv1 + b), the second conv's operand
 //   y  [yn][C + 1] f32 sum over resblocks (odd stride: the transposed
 //                      reads of the store and of conv_post spread banks)
 //   plan  the launch plan's rows, read once
-//   w  at C <= 32, the current conv's MMA fragments (max_k taps, at most
+//   w  staged weight fragments:
+//      bf16: at C <= 32, the current conv's (max_k taps, at most
 //      22.5 KB), staged from device memory once per conv: every warp item
 //      reads them, and through L1 (which shared memory leaves small) they
 //      would come from L2 again and again.  At C = 64 a conv's fragments
 //      (90 KB) would cost the tile more than the L2 reads cost, so warps
-//      read them from device memory.
-// The upsampler stages lrelu(x_in) as f32 [c_in][lin] over s, u and y.
+//      read them from device memory.  f32: none (stage_tf32_kernel says
+//      why).
+// T is bf16 or f32, the path's operand type.  The upsampler stages
+// lrelu(x_in) as f32 [c_in][lin] over s, u and y.
 constexpr int kMaxConvs = 64;  // rows of the launch plan a block holds
 template <int C>
 constexpr bool kStageWeights = C <= 32;
 
 struct StagePlan {
-  int ld, lb, yn, ylo, ldy, w_uint4;
+  int ld, lb, yn, ylo, ldy;
   size_t buf_bytes, plan_offset, w_offset, smem;
+  // elt: bytes of an x0 / s / u element (2 for bf16, 4 for f32); ld pads
+  // a row by 16 bytes so that eight rows start in eight bank groups.
+  // w_uint4: the staged weight fragments.
   __host__ __device__ StagePlan(int c, int tile, int halo, int post_pad,
-                                int max_k) {
-    ld = c + 8;
+                                int elt, int w_uint4) {
+    ld = c + 16 / elt;
     lb = tile + 2 * halo + kItemRows;
     yn = tile + 2 * post_pad;
     ylo = halo - post_pad;
     ldy = c + 1;
-    w_uint4 = c <= 32 ? max_k * (c / 16) * (c / 16) * 32 : 0;
-    buf_bytes = (size_t)lb * ld * 2;
+    buf_bytes = (size_t)lb * ld * elt;
     plan_offset = (3 * buf_bytes + (size_t)yn * ldy * 4 + 15) / 16 * 16;
     w_offset = plan_offset + kMaxConvs * 16;
     smem = w_offset + (size_t)w_uint4 * 16;
   }
 };
 
-template <int C>
-__global__ void __launch_bounds__(32 * kMmaWarps<C>, 1)
-    stage_mma_kernel(const __nv_bfloat16* __restrict__ x,
-                     void* __restrict__ out_ptr, const float* __restrict__ w,
-                     const float* __restrict__ b,
-                     const int4* plan, const uint4* __restrict__ frags,
-                     int c_in, int t_in,
-                     int T, int n_res, int n_steps, int ups_k,
-                     int ups_stride, int ups_pad, int has_post, int post_pad,
-                     int tile, int halo, int max_k) {
-  constexpr int NW = C / 8;  // one warp item: 16 rows x all C channels
-  constexpr int kcs = C / 16;
-  constexpr int kThreads = 32 * kMmaWarps<C>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const StagePlan p(C, tile, halo, post_pad, max_k);
-  __nv_bfloat16* x0 = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* s = x0 + p.lb * p.ld;
-  __nv_bfloat16* u = s + p.lb * p.ld;
-  float* y = reinterpret_cast<float*>(smem_raw + 3 * p.buf_bytes);
-  uint4* wsm = reinterpret_cast<uint4*>(smem_raw + p.w_offset);
-  int4* plan_s = reinterpret_cast<int4*>(smem_raw + p.plan_offset);
-  const int n_convs = (ups_k > 0) + 2 * n_res * n_steps + has_post;
-  for (int i = threadIdx.x; i < n_convs; i += kThreads) plan_s[i] = plan[i];
-  __syncthreads();
-  plan = plan_s;
-  const int L = tile + 2 * halo;
-  const int row = blockIdx.y;
-  const int t0 = blockIdx.x * tile;
-  const int pos0 = t0 - halo;  // sequence position of buffer row 0
-  int conv = 0;
+// bf16: at C <= 32 the largest conv's fragments (max_k taps)
+__host__ __device__ inline int bf16_w_uint4(int c, int max_k) {
+  return c <= 32 ? max_k * (c / 16) * (c / 16) * 32 : 0;
+}
 
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float v0, float v1) {
+  *reinterpret_cast<uint32_t*>(p) = conv_tile::pack_bf16x2(v0, v1);
+}
+__device__ __forceinline__ void store2(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+// eight channels in one 16-byte store (two for f32)
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
+  uint4 packed;
+  packed.x = conv_tile::pack_bf16x2(v[0], v[1]);
+  packed.y = conv_tile::pack_bf16x2(v[2], v[3]);
+  packed.z = conv_tile::pack_bf16x2(v[4], v[5]);
+  packed.w = conv_tile::pack_bf16x2(v[6], v[7]);
+  *reinterpret_cast<uint4*>(p) = packed;
+}
+__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return conv_tile::unpack_bf16x2(*reinterpret_cast<const uint32_t*>(p));
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+// x0 = the stage input for buffer rows [0, L), [row][ld] in T, zero
+// outside [0, T): the upsampler's output (on FFMA) when ups_k > 0, else x
+// transposed.  The upsampler stages lrelu(x_in) as f32 [c_in][lin] at
+// xin, which must not overlap x0.  Ends with a barrier.
+template <int C, int kThreads, typename T>
+__device__ __forceinline__ void stage_input(
+    const T* __restrict__ x, T* x0, int ld, float* xin,
+    const float* __restrict__ w, const float* __restrict__ b, int4 cu,
+    int c_in, int t_in, int T_len, int ups_k, int ups_stride, int ups_pad,
+    int L, int pos0, int row) {
   if (ups_k > 0) {
     // stage lrelu(x_in) for every input row this tile's outputs read
-    const int4 cu = plan[conv++];
     const int m_lo = floordiv(pos0 + ups_pad - (ups_k - 1), ups_stride);
     const int m_hi = floordiv(pos0 + L - 1 + ups_pad, ups_stride);
     const int lin = m_hi - m_lo + 1;
-    float* xin = reinterpret_cast<float*>(s);
-    const __nv_bfloat16* xb = x + (size_t)row * c_in * t_in;
+    const T* xb = x + (size_t)row * c_in * t_in;
     for (int idx = threadIdx.x; idx < c_in * lin; idx += kThreads) {
       const int ci = idx / lin;
       const int m = m_lo + (idx - ci * lin);
       xin[idx] = (m >= 0 && m < t_in)
-                     ? lrelu(__bfloat162float(xb[(size_t)ci * t_in + m]))
+                     ? lrelu(load_f(xb + (size_t)ci * t_in + m))
                      : 0.f;
     }
     __syncthreads();
@@ -492,37 +503,105 @@ __global__ void __launch_bounds__(32 * kMmaWarps<C>, 1)
         const int i = i0 + q * ups_stride;
         const int t = pos0 + i;
         if (i >= L) break;
-        const bool inside = t >= 0 && t < T;
-        uint4 packed;
-        packed.x = conv_tile::pack_bf16x2(inside ? a[q][0] : 0.f,
-                                          inside ? a[q][1] : 0.f);
-        packed.y = conv_tile::pack_bf16x2(inside ? a[q][2] : 0.f,
-                                          inside ? a[q][3] : 0.f);
-        packed.z = conv_tile::pack_bf16x2(inside ? a[q][4] : 0.f,
-                                          inside ? a[q][5] : 0.f);
-        packed.w = conv_tile::pack_bf16x2(inside ? a[q][6] : 0.f,
-                                          inside ? a[q][7] : 0.f);
-        *reinterpret_cast<uint4*>(x0 + i * p.ld + co0) = packed;
+        const bool inside = t >= 0 && t < T_len;
+        float v[8];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) v[c] = inside ? a[q][c] : 0.f;
+        store8(x0 + i * ld + co0, v);
       }
     }
   } else {
     // transpose the input tile to [position][channel], two channels a
     // thread, neighbouring threads neighbouring positions
-    const __nv_bfloat16* xb = x + (size_t)row * C * T;
+    const T* xb = x + (size_t)row * C * T_len;
     for (int idx = threadIdx.x; idx < (C / 2) * L; idx += kThreads) {
       const int ci = idx / L * 2;
       const int i = idx - ci / 2 * L;
       const int t = pos0 + i;
       float v0 = 0.f, v1 = 0.f;
-      if (t >= 0 && t < T) {
-        v0 = __bfloat162float(xb[(size_t)ci * T + t]);
-        v1 = __bfloat162float(xb[(size_t)(ci + 1) * T + t]);
+      if (t >= 0 && t < T_len) {
+        v0 = load_f(xb + (size_t)ci * T_len + t);
+        v1 = load_f(xb + (size_t)(ci + 1) * T_len + t);
       }
-      *reinterpret_cast<uint32_t*>(x0 + i * p.ld + ci) =
-          conv_tile::pack_bf16x2(v0, v1);
+      store2(x0 + i * ld + ci, v0, v1);
     }
   }
   __syncthreads();
+}
+
+// The stage's result from y, the f32 mean over resblocks [yn][ldy]
+// (row 0 = sequence position t0 - post_pad): with conv_post, the f32
+// waveform tanh(conv_post(lrelu(y))) of the tile; else y in T_out.
+template <int C, int kThreads, typename T_out>
+__device__ __forceinline__ void stage_output(
+    const float* y, int ldy, void* __restrict__ out_ptr,
+    const float* __restrict__ w, const float* __restrict__ b, int4 cp,
+    int has_post, int post_pad, int tile, int t0, int T_len, int row) {
+  if (has_post) {
+    const int pad = (cp.z - 1) / 2;
+    const float* wp = w + cp.x;  // [C][K][1]
+    float* outp = (float*)out_ptr + (size_t)row * T_len;
+    for (int i = threadIdx.x; i < tile; i += kThreads) {
+      const int t = t0 + i;
+      if (t >= T_len) continue;
+      float a = __ldg(b + cp.y);
+      for (int tap = 0; tap < cp.z; ++tap) {
+        const int j = i + post_pad + tap - pad;  // row of y
+        const int tt = t + tap - pad;
+        if (tt < 0 || tt >= T_len) continue;
+        for (int ci = 0; ci < C; ++ci)
+          a = fmaf(__ldg(wp + ci * cp.z + tap), lrelu(y[j * ldy + ci]), a);
+      }
+      outp[t] = tanhf(a);
+    }
+  } else {
+    T_out* outp = (T_out*)out_ptr + (size_t)row * C * T_len;
+    for (int idx = threadIdx.x; idx < C * tile; idx += kThreads) {
+      const int c = idx / tile;
+      const int i = idx - c * tile;
+      const int t = t0 + i;
+      if (t < T_len) store_f(outp + (size_t)c * T_len + t, y[i * ldy + c]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on tensor cores
+// ---------------------------------------------------------------------------
+
+template <int C>
+__global__ void __launch_bounds__(32 * kMmaWarps<C>, 1)
+    stage_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                     void* __restrict__ out_ptr, const float* __restrict__ w,
+                     const float* __restrict__ b,
+                     const int4* plan, const uint4* __restrict__ frags,
+                     int c_in, int t_in,
+                     int T, int n_res, int n_steps, int ups_k,
+                     int ups_stride, int ups_pad, int has_post, int post_pad,
+                     int tile, int halo, int max_k) {
+  constexpr int NW = C / 8;  // one warp item: 16 rows x all C channels
+  constexpr int kcs = C / 16;
+  constexpr int kThreads = 32 * kMmaWarps<C>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const StagePlan p(C, tile, halo, post_pad, 2, bf16_w_uint4(C, max_k));
+  __nv_bfloat16* x0 = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* s = x0 + p.lb * p.ld;
+  __nv_bfloat16* u = s + p.lb * p.ld;
+  float* y = reinterpret_cast<float*>(smem_raw + 3 * p.buf_bytes);
+  uint4* wsm = reinterpret_cast<uint4*>(smem_raw + p.w_offset);
+  int4* plan_s = reinterpret_cast<int4*>(smem_raw + p.plan_offset);
+  const int n_convs = (ups_k > 0) + 2 * n_res * n_steps + has_post;
+  for (int i = threadIdx.x; i < n_convs; i += kThreads) plan_s[i] = plan[i];
+  __syncthreads();
+  plan = plan_s;
+  const int L = tile + 2 * halo;
+  const int row = blockIdx.y;
+  const int t0 = blockIdx.x * tile;
+  const int pos0 = t0 - halo;  // sequence position of buffer row 0
+  int conv = ups_k > 0;  // plan row of the next conv
+  stage_input<C, kThreads>(x, x0, p.ld, reinterpret_cast<float*>(s), w, b,
+                           plan[0], c_in, t_in, T, ups_k, ups_stride,
+                           ups_pad, L, pos0, row);
 
   const int warp = threadIdx.x / 32;
   const uint4* wf = frags;
@@ -615,33 +694,9 @@ __global__ void __launch_bounds__(32 * kMmaWarps<C>, 1)
     }
   }
 
-  if (has_post) {
-    const int4 cp = plan[conv];
-    const int pad = (cp.z - 1) / 2;
-    const float* wp = w + cp.x;  // [C][K][1]
-    float* outp = (float*)out_ptr + (size_t)row * T;
-    for (int i = threadIdx.x; i < tile; i += kThreads) {
-      const int t = t0 + i;
-      if (t >= T) continue;
-      float a = __ldg(b + cp.y);
-      for (int tap = 0; tap < cp.z; ++tap) {
-        const int j = i + post_pad + tap - pad;  // row of y
-        const int tt = t + tap - pad;
-        if (tt < 0 || tt >= T) continue;
-        for (int ci = 0; ci < C; ++ci)
-          a = fmaf(__ldg(wp + ci * cp.z + tap), lrelu(y[j * p.ldy + ci]), a);
-      }
-      outp[t] = tanhf(a);
-    }
-  } else {
-    __nv_bfloat16* outp = (__nv_bfloat16*)out_ptr + (size_t)row * C * T;
-    for (int idx = threadIdx.x; idx < C * tile; idx += kThreads) {
-      const int c = idx / tile;
-      const int i = idx - c * tile;
-      const int t = t0 + i;
-      if (t < T) outp[(size_t)c * T + t] = __float2bfloat16(y[i * p.ldy + c]);
-    }
-  }
+  stage_output<C, kThreads, __nv_bfloat16>(y, p.ldy, out_ptr, w, b,
+                                           plan[conv], has_post, post_pad,
+                                           tile, t0, T, row);
 }
 
 template <int C>
@@ -652,7 +707,7 @@ cudaError_t launch_mma(const void* x, void* out, const float* w,
                        int has_post, int post_pad, int tile, int halo,
                        int max_k, cudaStream_t stream) {
   auto kernel = stage_mma_kernel<C>;
-  const StagePlan p(C, tile, halo, post_pad, max_k);
+  const StagePlan p(C, tile, halo, post_pad, 2, bf16_w_uint4(C, max_k));
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (err != cudaSuccess) return err;
@@ -664,10 +719,190 @@ cudaError_t launch_mma(const void* x, void* out, const float* w,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// float32 on tensor cores: three TF32 passes
+// ---------------------------------------------------------------------------
+
+// Warps of a block (one block per SM) and the 16-row M tiles a warp holds
+// per conv: its tiles are warp, warp + W, ..., so a conv covers at most
+// 16 * kTf32Slots * W rows (the launcher checks tile + 2 * halo against
+// it; ops/stage.py mma_warps and TF32_SLOTS mirror both).
+template <int C>
+constexpr int kTf32Warps = C <= 32 ? 16 : 8;
+constexpr int kTf32Slots = 2;
+
+// The stage of stage_mma_kernel in f32: x0, s, u are f32 [rows][C + 4],
+// the state and the intermediate are never rounded below f32, and each
+// resblock conv is three TF32 passes (conv_tile::tap_tf32).  A conv's
+// TF32 fragments take four times the bytes of its bf16 ones (90 KB for a
+// K=11 conv at C=32) and do not fit beside the f32 tile, so the loop runs
+// tap by tap, each warp holding the accumulators of all its M tiles
+// (kTf32Slots x C channels) across the conv's taps: every B fragment
+// read feeds up to kTf32Slots M tiles.  Weights: every resblock conv's
+// taps, back to back in launch order, read from device memory through the
+// read-only cache (one tap is 2 / 8 / 32 KB at C = 16 / 32 / 64, shared
+// by every warp of the block).  Streaming each tap through a two-slot
+// cp.async ring in shared memory instead was faster only for one-wave
+// launches and slower at B = 4 (scripts/ablate_stage.py builds it;
+// PERF.md).
+template <int C>
+__global__ void __launch_bounds__(32 * kTf32Warps<C>, 1)
+    stage_tf32_kernel(const float* __restrict__ x, void* __restrict__ out_ptr,
+                      const float* __restrict__ w,
+                      const float* __restrict__ b, const int4* plan,
+                      const uint4* __restrict__ frags, int c_in, int t_in,
+                      int T, int n_res, int n_steps, int ups_k,
+                      int ups_stride, int ups_pad, int has_post,
+                      int post_pad, int tile, int halo) {
+  constexpr int W = kTf32Warps<C>;
+  constexpr int kThreads = 32 * W;
+  constexpr int NW = C / 8;   // N tiles: all C output channels
+  constexpr int kcs = C / 8;  // 8-deep K chunks
+  constexpr int kTap = kcs * NW * 32;  // uint4 of one tap's fragments
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const StagePlan p(C, tile, halo, post_pad, 4, 0);
+  float* x0 = reinterpret_cast<float*>(smem_raw);
+  float* s = x0 + p.lb * p.ld;
+  float* u = s + p.lb * p.ld;
+  float* y = reinterpret_cast<float*>(smem_raw + 3 * p.buf_bytes);
+  int4* plan_s = reinterpret_cast<int4*>(smem_raw + p.plan_offset);
+  const int n_convs = (ups_k > 0) + 2 * n_res * n_steps + has_post;
+  for (int i = threadIdx.x; i < n_convs; i += kThreads) plan_s[i] = plan[i];
+  __syncthreads();
+  plan = plan_s;
+  const int L = tile + 2 * halo;
+  const int row = blockIdx.y;
+  const int t0 = blockIdx.x * tile;
+  const int pos0 = t0 - halo;  // sequence position of buffer row 0
+  int conv = ups_k > 0;        // plan row of the next conv
+  stage_input<C, kThreads>(x, x0, p.ld, s, w, b, plan[0], c_in, t_in, T,
+                           ups_k, ups_stride, ups_pad, L, pos0, row);
+
+  const int warp = threadIdx.x / 32;
+  int g = 0;  // tap block: the resblock convs' taps in launch order
+  for (int r = 0; r < n_res; ++r) {
+    // the rows each conv must produce shrink by the padding of the convs
+    // after it: ext = the resblock's receptive half-width still ahead
+    int ext = 0;
+    for (int m = 0; m < 2 * n_steps; ++m) {
+      const int4 cm = plan[conv + m];
+      ext += cm.w * (cm.z - 1) / 2;
+    }
+    for (int step = 0; step < n_steps; ++step) {
+      const float* src = step == 0 ? x0 : s;
+      for (int half = 0; half < 2; ++half) {
+        const int4 cc = plan[conv++];
+        const int pad = cc.w * (cc.z - 1) / 2;
+        ext -= pad;
+        const int lo = p.ylo - ext;
+        const int n = p.yn + 2 * ext;
+        const bool last = step == n_steps - 1 && half == 1;
+        // this warp's M tiles: warp, warp + W, ... below ceil(n / 16)
+        const int mtiles = (n + kItemRows - 1) / kItemRows;
+        const int mvalid = mtiles > warp ? (mtiles - warp + W - 1) / W : 0;
+        float acc[kTf32Slots][NW][4];
+        conv_tile::zero(acc);
+        const int row0 = lo - pad + warp * kItemRows;
+        for (int tap = 0; tap < cc.z; ++tap, ++g) {
+          const uint4* wt = frags + (size_t)g * kTap;
+          const int r_tap = row0 + tap * cc.w;
+          if (half == 0)
+            conv_tile::tap_tf32<kTf32Slots, NW, true>(
+                acc, src, p.ld, r_tap, kItemRows * W, mvalid, kcs, wt, NW,
+                0);
+          else
+            conv_tile::tap_tf32<kTf32Slots, NW, false>(
+                acc, u, p.ld, r_tap, kItemRows * W, mvalid, kcs, wt, NW, 0);
+        }
+        // this lane's biases (after the MMAs: registers are scarce here)
+        float bias[NW][2];
+#pragma unroll
+        for (int ni = 0; ni < NW; ++ni) {
+          bias[ni][0] = __ldg(b + cc.y + conv_tile::acc_col(ni, 0));
+          bias[ni][1] = __ldg(b + cc.y + conv_tile::acc_col(ni, 1));
+        }
+#pragma unroll
+        for (int mi = 0; mi < kTf32Slots; ++mi) {
+          if (mi >= mvalid) continue;
+          const int r0 = lo + (warp + mi * W) * kItemRows;
+#pragma unroll
+          for (int ni = 0; ni < NW; ++ni)
+#pragma unroll
+            for (int e = 0; e < 4; e += 2) {
+              const int i = r0 + conv_tile::acc_row(0, e);
+              const int co = conv_tile::acc_col(ni, e);
+              const int t = pos0 + i;
+              const bool inside = t >= 0 && t < T;
+              float v0 = acc[mi][ni][e] + bias[ni][0];
+              float v1 = acc[mi][ni][e + 1] + bias[ni][1];
+              if (half == 0) {
+                // lrelu(conv1), zero outside [0, T)
+                store2(u + i * p.ld + co, inside ? lrelu(v0) : 0.f,
+                       inside ? lrelu(v1) : 0.f);
+                continue;
+              }
+              // residual add onto the state
+              const float2 prev = load2(src + i * p.ld + co);
+              v0 = inside ? prev.x + v0 : 0.f;
+              v1 = inside ? prev.y + v1 : 0.f;
+              if (!last) {
+                store2(s + i * p.ld + co, v0, v1);
+                continue;
+              }
+              // the resblock's output, into the mean over resblocks
+              float* yr = y + (i - p.ylo) * p.ldy + co;
+              if (r > 0) {
+                v0 += yr[0];
+                v1 += yr[1];
+              }
+              if (r == n_res - 1) {
+                v0 /= (float)n_res;
+                v1 /= (float)n_res;
+              }
+              yr[0] = v0;
+              yr[1] = v1;
+            }
+        }
+        __syncthreads();  // the next conv reads what this one wrote
+      }
+    }
+  }
+
+  stage_output<C, kThreads, float>(y, p.ldy, out_ptr, w, b, plan[conv],
+                                   has_post, post_pad, tile, t0, T, row);
+}
+
+template <int C>
+cudaError_t launch_tf32(const void* x, void* out, const float* w,
+                        const float* b, const int4* plan, const void* frags,
+                        int batch, int c_in, int t_in, int T, int n_res,
+                        int n_steps, int ups_k, int ups_stride, int ups_pad,
+                        int has_post, int post_pad, int tile, int halo,
+                        cudaStream_t stream) {
+  if ((tile + 2 * halo + kItemRows - 1) / kItemRows >
+      kTf32Slots * kTf32Warps<C>)
+    return cudaErrorInvalidValue;  // a conv's rows exceed the warps' slots
+  auto kernel = stage_tf32_kernel<C>;
+  const StagePlan p(C, tile, halo, post_pad, 4, 0);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((T + tile - 1) / tile, batch);
+  kernel<<<grid, 32 * kTf32Warps<C>, p.smem, stream>>>(
+      static_cast<const float*>(x), out, w, b, plan,
+      static_cast<const uint4*>(frags), c_in, t_in, T, n_res, n_steps, ups_k,
+      ups_stride, ups_pad, has_post, post_pad, tile, halo);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  Returns a cudaError_t value:
-// 0 when the launch was accepted.
+// Plain C entry points (bound with ctypes).  Each returns a cudaError_t
+// value: 0 when the launch was accepted.
+//
+// FFMA, C = 8 (under the MMA depth of both tensor-core paths), f32 or
+// bf16 (is_bf16).  Wider stages run on tensor cores:
+// hifigan_stage_mma_launch (bf16) and hifigan_stage_tf32_launch (f32).
 extern "C" int hifigan_stage_launch(const void* x, void* out, const void* w,
                                     const void* b, const void* plan,
                                     int batch, int c, int c_in, int t_in,
@@ -679,17 +914,15 @@ extern "C" int hifigan_stage_launch(const void* x, void* out, const void* w,
   const float* bf = static_cast<const float*>(b);
   const int4* pl = static_cast<const int4*>(plan);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    // bf16 from 16 channels runs on tensor cores (hifigan_stage_mma_launch)
-    if (c != 8) return (int)cudaErrorInvalidValue;
+  if (c != 8) return (int)cudaErrorInvalidValue;
+  if (is_bf16)
     return (int)launch<8, __nv_bfloat16>(x, out, wf, bf, pl, batch, c_in,
                                          t_in, t_out, n_res, n_steps, ups_k,
                                          ups_stride, ups_pad, has_post, tile,
                                          halo, st);
-  }
-  return (int)dispatch(c, x, out, wf, bf, pl, batch, c_in, t_in, t_out,
-                       n_res, n_steps, ups_k, ups_stride, ups_pad, has_post,
-                       tile, halo, st);
+  return (int)launch<8, float>(x, out, wf, bf, pl, batch, c_in, t_in, t_out,
+                               n_res, n_steps, ups_k, ups_stride, ups_pad,
+                               has_post, tile, halo, st);
 }
 
 // bf16 on tensor cores, C in {16, 32, 64}.  frags: the resblock convs'
@@ -728,4 +961,40 @@ extern "C" int hifigan_stage_mma_launch(const void* x, void* out,
       return (int)cudaErrorInvalidValue;
   }
 #undef STAGE_MMA_CASE
+}
+
+// f32 on tensor cores (three TF32 passes), C in {16, 32, 64}.  frags: the
+// resblock convs' TF32 hi/lo fragments (ops/mma.py) in launch order.
+// Other arguments as hifigan_stage_mma_launch, less max_k.
+extern "C" int hifigan_stage_tf32_launch(const void* x, void* out,
+                                         const void* w, const void* b,
+                                         const void* plan, const void* frags,
+                                         int batch, int c, int c_in, int t_in,
+                                         int t_out, int n_res, int n_steps,
+                                         int ups_k, int ups_stride,
+                                         int ups_pad, int has_post,
+                                         int post_pad, int tile, int halo,
+                                         void* stream) {
+  const float* wf = static_cast<const float*>(w);
+  const float* bf = static_cast<const float*>(b);
+  const int4* pl = static_cast<const int4*>(plan);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tile <= 0 || post_pad < 0 || (!has_post && post_pad != 0) ||
+      (tile + 2 * post_pad) % kItemRows != 0 ||
+      (ups_k > 0) + 2 * n_res * n_steps + has_post > kMaxConvs)
+    return (int)cudaErrorInvalidValue;
+#define STAGE_TF32_CASE(CH)                                                \
+  case CH:                                                                 \
+    return (int)launch_tf32<CH>(x, out, wf, bf, pl, frags, batch, c_in,    \
+                                t_in, t_out, n_res, n_steps, ups_k,        \
+                                ups_stride, ups_pad, has_post, post_pad,   \
+                                tile, halo, st);
+  switch (c) {
+    STAGE_TF32_CASE(16)
+    STAGE_TF32_CASE(32)
+    STAGE_TF32_CASE(64)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef STAGE_TF32_CASE
 }

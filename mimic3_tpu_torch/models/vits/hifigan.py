@@ -108,8 +108,10 @@ def pack_stages(
     upsample_rates: typing.Sequence[int],
     upsample_kernel_sizes: typing.Sequence[int],
     device: torch.device,
+    dtype: torch.dtype,
 ) -> typing.Dict[int, StageWeights]:
-    """Kernel weight packs of the fused stages, built once per voice."""
+    """Kernel weight packs of the fused stages, built once per voice for
+    the decoder's ``dtype``."""
     n_kernels = len(resblock_kernel_sizes)
     last = len(upsample_rates) - 1
     return {
@@ -125,6 +127,7 @@ def pack_stages(
             ups_padding=(upsample_kernel_sizes[i] - upsample_rates[i]) // 2,
             post_params=params["conv_post"] if i == last else None,
             device=device,
+            dtype=dtype,
         )
         for i in stages
     }

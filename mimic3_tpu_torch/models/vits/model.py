@@ -512,7 +512,8 @@ class VitsModel:
             **self._decoder_kwargs(),
         )
         return hfg.pack_stages(
-            dec_params, stages, device=device, **self._decoder_kwargs()
+            dec_params, stages, device=device, dtype=self.decoder_dtype,
+            **self._decoder_kwargs()
         )
 
     def encode(self, params: Params, ids: torch.Tensor, x_mask: torch.Tensor):

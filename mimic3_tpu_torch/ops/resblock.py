@@ -12,9 +12,16 @@ layout and conv weights ``[Cout, Cin, K]``.  As on the TPU, the weights
 are rounded to x's dtype, the sums are float32 and the output has x's
 dtype.  The TPU kernel's tiling limits (8-row halo rounding, T a multiple
 of the tile) do not apply: any ``T >= 1`` and any C that is a multiple of
-8 up to 256 are taken.  bf16 with ``C >= 16`` runs on tensor cores
-(weights packed as MMA fragments by :mod:`.mma`); float32, and bf16 below
-the MMA depth of 16 channels, run on FFMA.
+8 up to 256 are taken.  Which kernel a step reaches, by x's dtype and C:
+
+- bf16, ``C >= 16``: ``subblock_mma_kernel<NW, bf16>`` on tensor cores
+  (``mma.sync.m16n8k16``, weights packed as bf16 MMA fragments by
+  :mod:`.mma`; the intermediate rounded to bf16 as on the TPU);
+- float32, ``C >= 16``: ``subblock_mma_kernel<NW, float>``, the same in
+  three TF32 passes (``mma.sync.m16n8k8`` on the hi/lo split of both
+  operands, f32-accurate; the intermediate kept in f32);
+- ``C = 8`` (under the MMA depth of both), either dtype:
+  ``subblock_kernel`` on FFMA.
 
 No synthesis path calls this kernel, as in the JAX package: its entry
 point is ``mimic3_tpu_torch/scripts/profile_resblock.py``.  The source is
@@ -75,32 +82,39 @@ def build_library() -> ctypes.CDLL:
             return _LIB
         out = library_path()
         build.compile_library(SOURCE, out)
-        lib = ctypes.CDLL(str(out))
-        fn = lib.resblock_subblock_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = (
-            [ctypes.c_void_p] * 6  # x, out, w1, b1, w2, b2
-            + [ctypes.c_int] * 7  # batch, C, T, K, dilation, tile, is_bf16
-            + [ctypes.c_void_p]  # stream
-        )
-        fn = lib.resblock_subblock_mma_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = (
-            [ctypes.c_void_p] * 6  # x, out, w1, b1, w2, b2
-            + [ctypes.c_int] * 7  # batch, C, T, K, dilation, rows, groups
-            + [ctypes.c_void_p]  # stream
-        )
-        _LIB = lib
-        return lib
+        _LIB = bind(ctypes.CDLL(str(out)))
+        return _LIB
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the entry points' C signatures on a loaded library."""
+    fn = lib.resblock_subblock_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p] * 6  # x, out, w1, b1, w2, b2
+        + [ctypes.c_int] * 7  # batch, C, T, K, dilation, tile, is_bf16
+        + [ctypes.c_void_p]  # stream
+    )
+    fn = lib.resblock_subblock_mma_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p] * 6  # x, out, w1, b1, w2, b2
+        # batch, C, T, K, dilation, rows, groups, is_bf16
+        + [ctypes.c_int] * 8
+        + [ctypes.c_void_p]  # stream
+    )
+    return lib
 
 
 @dataclass(frozen=True)
 class SubblockWeights:
-    """One step's two convs laid out for the kernel.  FFMA path: weights
-    ``[Cin, K, Cout]`` and biases ``[C]``, rounded to ``dtype`` and held
-    as float32.  Tensor-core path (``mma``): weights as int32 MMA
-    fragments (:func:`.mma.pack_conv_fragments`) and biases rounded to
-    bf16, held as float32 and padded to a multiple of 16."""
+    """One step's two convs laid out for the kernel.  FFMA path (C = 8):
+    weights ``[Cin, K, Cout]`` and biases ``[C]``, rounded to ``dtype``
+    and held as float32.  Tensor-core path (``mma``): weights as int32 MMA
+    fragments, bf16 (:func:`.mma.pack_conv_fragments`) or TF32 hi/lo
+    (:func:`.mma.pack_conv_fragments_tf32`) by ``dtype``, and biases
+    rounded to ``dtype``, held as float32 and padded to a multiple of
+    16."""
 
     w1: torch.Tensor
     b1: torch.Tensor
@@ -121,8 +135,8 @@ def pack_subblock_weights(
     device: typing.Optional[torch.device] = None,
 ) -> SubblockWeights:
     """Pack ``[Cout, Cin, K]`` conv weights (``None`` bias = zeros) for
-    the path that x's ``dtype`` takes: MMA fragments for bf16 with
-    ``C >= 16``, else the FFMA layout."""
+    the path that x's ``dtype`` takes: MMA fragments (bf16, or TF32 hi/lo
+    for float32) with ``C >= 16``, else the FFMA layout."""
     c, c_in, k = w1.shape
     if c_in != c or tuple(w2.shape) != (c, c, k):
         raise ValueError(
@@ -130,11 +144,13 @@ def pack_subblock_weights(
             "square convs of one kernel size"
         )
     if uses_mma(c, dtype):
+        pack = (mma.pack_conv_fragments_tf32 if dtype == torch.float32
+                else mma.pack_conv_fragments)
         return SubblockWeights(
-            w1=mma.pack_conv_fragments(w1.to(device)),
-            b1=mma.pad_bias(b1, c, device),
-            w2=mma.pack_conv_fragments(w2.to(device)),
-            b2=mma.pad_bias(b2, c, device),
+            w1=pack(w1.to(device)),
+            b1=mma.pad_bias(b1, c, device, dtype),
+            w2=pack(w2.to(device)),
+            b2=mma.pad_bias(b2, c, device, dtype),
             channels=c, kernel_size=k, dtype=dtype, mma=True,
         )
 
@@ -153,35 +169,40 @@ def pack_subblock_weights(
 
 
 def uses_mma(channels: int, dtype: torch.dtype) -> bool:
-    """bf16 with at least the MMA depth of channels runs on tensor cores."""
-    return dtype == torch.bfloat16 and channels >= 16
+    """At least the MMA depth of channels runs on tensor cores, bf16 and
+    float32 alike; C = 8 runs the FFMA kernel."""
+    return channels >= 16 and dtype in (torch.float32, torch.bfloat16)
 
 
 def mma_smem_bytes(
-    channels: int, kernel_size: int, dilation: int, rows: int, groups: int
+    channels: int, kernel_size: int, dilation: int, rows: int, groups: int,
+    dtype: torch.dtype = torch.bfloat16,
 ) -> int:
     """Shared memory of one tensor-core block (``MmaPlan`` in
     ``csrc/resblock.cu``): the intermediate h, then lrelu(x) or the
-    second conv's f32 output tile, whichever is larger."""
+    second conv's f32 output tile, whichever is larger; h and lrelu(x) in
+    x's dtype, rows padded by 16 bytes."""
     cp = mma.padded(channels)
-    ld = cp + 8
+    elt = 4 if dtype == torch.float32 else 2
+    ld = cp + 16 // elt
     h1 = dilation * (kernel_size - 1) // 2
     h2 = (kernel_size - 1) // 2
     m2 = -(-(rows - 2 * h2) // 32) * 32
-    a_bytes = (rows + 2 * h1) * ld * 2
+    a_bytes = (rows + 2 * h1) * ld * elt
     o_bytes = cp // groups * (m2 + 4) * 4
-    return (m2 + 2 * h2) * ld * 2 + max(a_bytes, o_bytes)
+    return (m2 + 2 * h2) * ld * elt + max(a_bytes, o_bytes)
 
 
 @functools.lru_cache(maxsize=256)
 def pick_mma_config(
-    channels: int, kernel_size: int, dilation: int, t: int, batch: int
+    channels: int, kernel_size: int, dilation: int, t: int, batch: int,
+    dtype: torch.dtype = torch.bfloat16,
 ) -> typing.Tuple[int, int]:
     """(rows of the first conv per block, output-channel groups) for the
-    tensor-core path.  Each candidate is costed as waves of blocks over
-    the SMs times a block's rounds of warp items (32 rows x 8*NW output
-    channels x C_in x K MACs each), the first conv over all channels and
-    the second over the block's group.  Blocks that let two share an SM
+    tensor-core path of ``dtype``.  Each candidate is costed as waves of
+    blocks over the SMs times a block's rounds of warp items (32 rows x
+    8*NW output channels x C_in x K MACs each), the first conv over all
+    channels and the second over the block's group.  Blocks that let two share an SM
     (16 warps to hide MMA latency) come first; ties go to less shared
     memory."""
     cp = mma.padded(channels)
@@ -197,7 +218,7 @@ def pick_mma_config(
             if cp % groups or cg % 16:
                 continue
             smem = mma_smem_bytes(
-                channels, kernel_size, dilation, rows, groups
+                channels, kernel_size, dilation, rows, groups, dtype
             )
             if smem > _MAX_SMEM_BYTES:
                 continue
@@ -224,10 +245,10 @@ def pick_mma_config(
 
 
 def pick_tile(channels: int, kernel_size: int, dilation: int, t: int) -> int:
-    """Time tile: the largest whose two f32 buffers (lrelu(x) with both
-    halos, and the intermediate with the second halo) let two blocks share
-    an SM with a tile of at least 64, else the largest that fits one
-    block; never much longer than the sequence."""
+    """FFMA kernel (C = 8): time tile, the largest whose two f32 buffers
+    (lrelu(x) with both halos, and the intermediate with the second halo)
+    let two blocks share an SM with a tile of at least 64, else the
+    largest that fits one block; never much longer than the sequence."""
     h1 = dilation * (kernel_size - 1) // 2
     h2 = (kernel_size - 1) // 2
 
@@ -329,11 +350,11 @@ def fused_resblock_subblock(
     with torch.cuda.device(x.device):
         if weights.mma:
             rows, groups = pick_mma_config(
-                c, kernel_size, dilation, t, batch
+                c, kernel_size, dilation, t, batch, x.dtype
             )
             err = lib.resblock_subblock_mma_launch(
                 *pointers, batch, c, t, kernel_size, dilation, rows, groups,
-                stream,
+                int(x.dtype == torch.bfloat16), stream,
             )
         else:
             tile = pick_tile(c, kernel_size, dilation, t)

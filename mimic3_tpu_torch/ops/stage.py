@@ -13,9 +13,18 @@ Activations use the port's ``[B, C, T]`` layout.  The kernel source is
 use into ``build/mimic3_tpu_torch/`` (keyed by a hash of the source and
 its headers) and bound through ``ctypes``.  Nothing is built when this module is imported.
 
-bf16 at ``C >= 16`` runs every resblock conv on tensor cores (the tile of
-``csrc/conv_tile.cuh``, weights packed as MMA fragments by :mod:`.mma`);
-float32, and bf16 at ``C = 8`` (under the MMA depth), run on FFMA.
+Which kernel a stage reaches, by x's dtype and C:
+
+- bf16, ``C`` in 16/32/64: ``stage_mma_kernel``, every resblock conv on
+  tensor cores (``mma.sync.m16n8k16``, the tile of ``csrc/conv_tile.cuh``,
+  weights packed as bf16 MMA fragments by :mod:`.mma`);
+- float32, ``C`` in 16/32/64: ``stage_tf32_kernel``, the same on tensor
+  cores in three TF32 passes (``mma.sync.m16n8k8`` on the hi/lo split of
+  both operands, f32-accurate; weights packed as TF32 hi/lo fragments);
+  its TF32 is explicit in the kernel's instructions, and torch's TF32
+  switches do not reach it;
+- ``C = 8`` (under the MMA depth of both), either dtype: ``stage_kernel``
+  on FFMA.
 
 For a CPU tensor :func:`hifigan_stage_fused` runs
 :func:`hifigan_stage_plain`; for a CUDA tensor it launches the kernel or
@@ -48,8 +57,11 @@ BUILD_DIR = build.BUILD_DIR
 
 # channel counts the kernel is instantiated for (csrc/stage.cu)
 SUPPORTED_CHANNELS = (8, 16, 32, 64)
-# those the bf16 path runs on tensor cores (the MMA depth is 16)
+# those that run on tensor cores, in bf16 and in f32 (the bf16 MMA depth
+# is 16; f32 pads channels to 16 as well, so both share their plans)
 MMA_CHANNELS = (16, 32, 64)
+# f32: 16-row M tiles a warp holds per conv (kTf32Slots in csrc/stage.cu)
+TF32_SLOTS = 2
 # dynamic shared memory one block may use on Hopper
 _MAX_SMEM_BYTES = 232448
 _TILES = (256, 128, 64, 32)  # time tiles tried, largest first
@@ -104,6 +116,13 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         + [ctypes.c_int] * 15
         + [ctypes.c_void_p]  # stream
     )
+    fn = lib.hifigan_stage_tf32_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p] * 6  # x, out, w, b, plan, fragments
+        + [ctypes.c_int] * 14  # as the bf16 launch, less max_k
+        + [ctypes.c_void_p]  # stream
+    )
     return lib
 
 
@@ -120,15 +139,18 @@ class StageWeights:
     launch order (ups, then per resblock per step conv1/conv2, then
     post); ``b``: float32 biases; ``plan``: int32 ``[n_convs, 4]`` rows
     of (weight offset, bias offset, K, dilation).  ``fragments``: the
-    resblock convs again as bf16 MMA fragments (:mod:`.mma`), back to
-    back in launch order, for the tensor-core path (``None`` below 16
-    channels); ``convs``: their (K, dilation) in that order.
+    resblock convs again as MMA fragments (:mod:`.mma`) for the
+    tensor-core path of ``dtype``, back to back in launch order: bf16
+    fragments for bfloat16, TF32 hi/lo fragments for float32 (``None``
+    below 16 channels, where the FFMA kernel reads ``w``); ``convs``:
+    their (K, dilation) in that order.
     """
 
     w: torch.Tensor
     b: torch.Tensor
     plan: torch.Tensor
     fragments: typing.Optional[torch.Tensor]
+    dtype: torch.dtype  # the activations' dtype the pack is for
     convs: typing.Tuple[typing.Tuple[int, int], ...]
     post_kernel: int
     channels: int
@@ -165,8 +187,14 @@ def pack_stage_weights(
     ups_padding: typing.Optional[int] = None,
     post_params: typing.Optional[Params] = None,
     device: typing.Optional[torch.device] = None,
+    dtype: torch.dtype = torch.bfloat16,
 ) -> StageWeights:
-    """Lay out (and cast to float32) one stage's weights for the kernel."""
+    """Lay out (and cast to float32) one stage's weights for the kernel
+    that activations of ``dtype`` reach."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"unsupported dtype {dtype}")
+    pack = (mma.pack_conv_fragments_tf32 if dtype == torch.float32
+            else mma.pack_conv_fragments)
     ws: typing.List[torch.Tensor] = []
     bs: typing.List[torch.Tensor] = []
     plan: typing.List[typing.Tuple[int, int, int, int]] = []
@@ -214,7 +242,7 @@ def pack_stage_weights(
                 add(p["weight"].permute(1, 2, 0), p.get("bias"), channels, dil)
                 convs.append((k, dil))
                 if channels in MMA_CHANNELS:
-                    frags.append(mma.pack_conv_fragments(p["weight"]).cpu())
+                    frags.append(pack(p["weight"]).cpu())
     post_kernel = 0
     if post_params is not None:
         pw = post_params["weight"]  # [1, C, K]
@@ -231,6 +259,7 @@ def pack_stage_weights(
             torch.cat([f.reshape(-1) for f in frags]).to(device)
             if frags else None
         ),
+        dtype=dtype,
         convs=tuple(convs),
         post_kernel=post_kernel,
         channels=channels,
@@ -246,13 +275,16 @@ def pack_stage_weights(
 
 
 def uses_mma(channels: int, dtype: torch.dtype) -> bool:
-    """bf16 stages of at least the MMA depth run on tensor cores."""
-    return dtype == torch.bfloat16 and channels in MMA_CHANNELS
+    """Stages of at least the MMA depth run on tensor cores, bf16 and
+    float32 alike; C = 8 runs the FFMA kernel."""
+    return channels in MMA_CHANNELS and dtype in (torch.float32,
+                                                  torch.bfloat16)
 
 
 def _pick_tile(weights: StageWeights) -> int:
-    """Largest time tile whose four f32 [C, tile + 2*halo] buffers (and
-    the upsampler's staged input) fit in one block's shared memory."""
+    """FFMA kernel (C = 8): largest time tile whose four f32
+    [C, tile + 2*halo] buffers (and the upsampler's staged input) fit in
+    one block's shared memory."""
     c = weights.channels
     for tile in _TILES:
         length = tile + 2 * weights.halo
@@ -268,28 +300,46 @@ def _pick_tile(weights: StageWeights) -> int:
     )
 
 
-def mma_warps(channels: int) -> int:
-    """Warps of a tensor-core block (``kMmaWarps`` in ``csrc/stage.cu``)."""
+def mma_warps(channels: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Warps of a tensor-core block: ``kMmaWarps`` (bf16) or
+    ``kTf32Warps`` (f32) in ``csrc/stage.cu``."""
+    if dtype == torch.float32:
+        return 16 if channels <= 32 else 8
     return 16 if channels <= 32 else 12
 
 
-def mma_smem_bytes(weights: StageWeights, rows: int) -> int:
-    """Shared memory of one tensor-core block for ``rows`` output rows
-    (``StagePlan`` in ``csrc/stage.cu``): three bf16 buffers of the haloed
-    tile plus 16 rows of slack, the f32 sum over resblocks, the launch
-    plan, and at C <= 32 the largest conv's MMA fragments."""
+def _smem_regions(
+    weights: StageWeights, rows: int, dtype: torch.dtype
+) -> typing.Tuple[int, int]:
+    """(bytes of one tensor-core block's shared memory, bytes of its state,
+    conv1 and sum buffers, over which the upsampler stages its input) for
+    ``rows`` output rows (``StagePlan`` in ``csrc/stage.cu``): three
+    buffers of the haloed tile plus 16 rows of slack in x's dtype (rows
+    padded by 16 bytes), the f32 sum over resblocks, the launch plan, and
+    the staged weight fragments (bf16 at C <= 32: the largest conv's)."""
     c = weights.channels
+    elt = 4 if dtype == torch.float32 else 2
     post_pad = (weights.post_kernel - 1) // 2 if weights.has_post else 0
     buffer_rows = rows - 2 * post_pad + 2 * weights.halo + 16
-    acts = 3 * buffer_rows * (c + 8) * 2 + rows * (c + 1) * 4
+    buf = buffer_rows * (c + 16 // elt) * elt
+    acts = 3 * buf + rows * (c + 1) * 4
     plan = 64 * 16
-    if c > 32:  # the fragments are read from device memory
-        return -(-acts // 16) * 16 + plan
-    max_k = max(k for k, _ in weights.convs)
-    return -(-acts // 16) * 16 + plan + max_k * (c // 16) ** 2 * 32 * 16
+    if dtype == torch.bfloat16 and c <= 32:
+        w_bytes = max(k for k, _ in weights.convs) * (c // 16) ** 2 * 32 * 16
+    else:  # the fragments are read from device memory
+        w_bytes = 0
+    return -(-acts // 16) * 16 + plan + w_bytes, acts - buf
 
 
-def _mma_rounds(weights: StageWeights, rows: int) -> int:
+def mma_smem_bytes(
+    weights: StageWeights, rows: int, dtype: torch.dtype = torch.bfloat16
+) -> int:
+    """Shared memory of one tensor-core block for ``rows`` output rows
+    (``StagePlan`` in ``csrc/stage.cu``)."""
+    return _smem_regions(weights, rows, dtype)[0]
+
+
+def _mma_rounds(weights: StageWeights, rows: int, warps: int) -> int:
     """Warp rounds of one block's convs, weighted by K: each conv computes
     its needed rows (the output rows plus the receptive half-width of the
     resblock's convs after it) in 16-row items over the block's warps."""
@@ -301,44 +351,50 @@ def _mma_rounds(weights: StageWeights, rows: int) -> int:
         for k, d in convs:
             ext -= d * (k - 1) // 2
             items = -(-(rows + 2 * ext) // 16)
-            total += k * -(-items // mma_warps(weights.channels))
+            total += k * -(-items // warps)
     return total
 
 
-def _pick_mma_rows(weights: StageWeights, t_out: int, batch: int) -> int:
+def _pick_mma_rows(
+    weights: StageWeights, t_out: int, batch: int,
+    dtype: torch.dtype = torch.bfloat16,
+) -> int:
     """Output rows per block (tile + 2 * conv_post padding) for the
-    tensor-core path: the least modelled time, waves of blocks over the
-    SMs times a block's warp rounds; ties go to the longer tile.  Cached
-    on the pack's shape (this runs on every launch)."""
+    tensor-core path of ``dtype``: the least modelled time, waves of
+    blocks over the SMs times a block's warp rounds; ties go to the longer
+    tile.  Cached on the pack's shape (this runs on every launch)."""
     return _pick_mma_rows_cached(
         dataclasses.replace(weights, w=None, b=None, plan=None,
                             fragments=None),
-        t_out, batch,
+        t_out, batch, dtype,
     )
 
 
 @functools.lru_cache(maxsize=256)
 def _pick_mma_rows_cached(
-    weights: StageWeights, t_out: int, batch: int
+    weights: StageWeights, t_out: int, batch: int, dtype: torch.dtype
 ) -> int:
     post_pad = (weights.post_kernel - 1) // 2 if weights.has_post else 0
+    warps = mma_warps(weights.channels, dtype)
     best = None
     for rows in _MMA_ROWS:
         tile = rows - 2 * post_pad
-        if tile < 1 or mma_smem_bytes(weights, rows) > _MAX_SMEM_BYTES:
+        smem, room = _smem_regions(weights, rows, dtype)
+        if tile < 1 or smem > _MAX_SMEM_BYTES:
             continue
+        if (dtype == torch.float32
+                and -(-(tile + 2 * weights.halo) // 16)
+                > TF32_SLOTS * warps):
+            continue  # a conv's rows exceed the warps' M-tile slots
         if weights.ups_kernel:
             # the upsampler stages lrelu(x_in) as f32 over the state,
             # conv1 and sum buffers
             length = tile + 2 * weights.halo
             lin = (length + weights.ups_kernel - 2) // weights.ups_stride + 2
-            room = mma_smem_bytes(weights, rows) - (
-                length + 16
-            ) * (weights.channels + 8) * 2
             if weights.in_channels * lin * 4 > room:
                 continue
         blocks = -(-t_out // tile) * batch
-        cost = -(-blocks // _SMS) * _mma_rounds(weights, rows)
+        cost = -(-blocks // _SMS) * _mma_rounds(weights, rows, warps)
         if best is None or cost < best[0]:
             best = (cost, rows)
         if tile >= t_out:
@@ -411,7 +467,8 @@ def hifigan_stage_fused(
     ``ups_params`` is given), float32 or bfloat16, contiguous.  Returns
     the stage output ``[B, C, T]`` in x's dtype, or with ``post_params``
     the float32 waveform ``[B, T]``.  ``weights`` is the stage packed by
-    :func:`pack_stage_weights` for x's device (built here when omitted).
+    :func:`pack_stage_weights` for x's device and dtype (built here when
+    omitted).
     """
     global launches
     kwargs = dict(
@@ -432,7 +489,7 @@ def hifigan_stage_fused(
     if weights is None:
         weights = pack_stage_weights(
             resblock_params, kernel_sizes, dilations,
-            device=x.device, **kwargs,
+            device=x.device, dtype=x.dtype, **kwargs,
         )
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"unsupported dtype {x.dtype}")
@@ -476,23 +533,33 @@ def hifigan_stage_fused(
     # cudaFuncSetAttribute applies to it alone: make it x's
     with torch.cuda.device(x.device):
         if uses_mma(c, x.dtype):
-            if (weights.fragments is None
-                    or weights.fragments.device != x.device):
-                raise ValueError("stage weights carry no MMA fragments here")
+            frags = weights.fragments
+            if (frags is None or weights.dtype != x.dtype
+                    or frags.device != x.device):
+                raise ValueError(
+                    f"stage weights carry no {x.dtype} MMA fragments on "
+                    f"{x.device}"
+                )
             post_pad = (
                 (weights.post_kernel - 1) // 2 if weights.has_post else 0
             )
-            rows = _pick_mma_rows(weights, t_out, batch)
-            err = lib.hifigan_stage_mma_launch(
+            rows = _pick_mma_rows(weights, t_out, batch, x.dtype)
+            args = (
                 x.data_ptr(), out.data_ptr(),
                 weights.w.data_ptr(), weights.b.data_ptr(),
-                weights.plan.data_ptr(), weights.fragments.data_ptr(),
+                weights.plan.data_ptr(), frags.data_ptr(),
                 batch, c, weights.in_channels, t_in, t_out,
                 weights.n_res, weights.n_steps,
                 weights.ups_kernel, weights.ups_stride, weights.ups_padding,
                 int(weights.has_post), post_pad, rows - 2 * post_pad,
-                weights.halo, max(k for k, _ in weights.convs), stream,
+                weights.halo,
             )
+            if x.dtype == torch.float32:
+                err = lib.hifigan_stage_tf32_launch(*args, stream)
+            else:
+                err = lib.hifigan_stage_mma_launch(
+                    *args, max(k for k, _ in weights.convs), stream
+                )
         else:
             tile = _pick_tile(weights)
             err = lib.hifigan_stage_launch(

@@ -391,10 +391,13 @@ def resolve_device(
 
 
 # The fused-stage gate on the card by decoder dtype, when the voice's
-# tpu.pallas_stage_max_channels does not set it: the widest decoder stage
-# at which the kernel is no slower than the plain cuDNN path at B=1 and
-# B=4 in the 128- and 256-frame buckets (the sweep in chip_smoke.py,
-# PERF.md).  f32 runs the FFMA kernel, bf16 the tensor-core one.
+# tpu.pallas_stage_max_channels does not set it: for each dtype, the
+# widest decoder stage at which the kernel is no slower than the plain
+# cuDNN path at B=1 and B=4 in the 128- and 256-frame buckets (the sweep
+# in chip_smoke.py, which fails when it finds another value; PERF.md).
+# Both dtypes run the stage on tensor cores: bf16 on bf16 MMAs, f32 on
+# three TF32 passes.  f32 stops at 32: at C = 64 its f32 buffers leave a
+# tile of about 100 rows against a 120-row halo, and cuDNN is faster.
 STAGE_MAX_CHANNELS = {torch.float32: 32, torch.bfloat16: 64}
 
 

@@ -1,17 +1,30 @@
 """Where the tensor-core stage kernel's time goes, on one card.
 
 No profiler that looks inside a kernel runs on the card's machine, so this
-builds variants of ``csrc/stage.cu`` with one part taken out (their
-outputs are wrong; only their times count) or with another warp count,
-and times each beside the unchanged kernel, in bf16 at the decoder's two
-widest fused stages in the 256-frame bucket, B=4: the last stage (ups
-64->32 + stage + post) and the C=64 stage with its upsampler 128->64.
+builds variants of ``csrc/stage.cu`` (and of the tile it includes) with
+one part taken out (their outputs are wrong; only their times count), with
+another warp count, or with another design choice, and times each beside
+the unchanged kernel at the decoder's fused stages:
+
+- bf16, 256-frame bucket, B=4: the last stage (ups 64->32 + stage + post)
+  and the C=64 stage with its upsampler 128->64;
+- f32 (three TF32 passes): the last stage at 128 frames, B=1 (the
+  deterministic main path) and at 256 frames, B=4, and the C=64 stage
+  alone at 256 frames, B=1 (the widest f32 stage, the one where a single
+  MMA accumulator misses the f32 bar).  The f32 variants also
+  report how far each lands from the plain float32 path and from the
+  plain path in float64 (its f32 ``conv_post`` head aside), as the
+  largest share of the port's bar ``2e-4 + 1e-3 |ref|`` (the flush
+  variants move precision, not only time).
+
 Random weights made with numpy from seed 0.
 
     python -m mimic3_tpu_torch.scripts.ablate_stage [--loops 20]
 
 Prints the card, then one JSON line per shape: ms per call of each
-variant (CUDA events, after warm calls).  Needs an NVIDIA card and nvcc.
+variant (CUDA events, after warm calls) and, in f32, its shares of the
+bar against plain f32 (``bar_share``) and float64 (``bar_share_f64``).
+Needs an NVIDIA card and nvcc.
 """
 
 from __future__ import annotations
@@ -20,7 +33,6 @@ import argparse
 import contextlib
 import ctypes
 import json
-import shutil
 import typing
 from concurrent.futures import ThreadPoolExecutor
 
@@ -33,53 +45,182 @@ from ..runtime.convert import to_torch_params
 KERNELS = (3, 7, 11)
 DILATIONS = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
 _WARPS = "constexpr int kMmaWarps = C <= 32 ? 16 : 12;"
-# variant -> (text patches of csrc/stage.cu, warps of a block or None)
-VARIANTS: typing.Dict[str, typing.Tuple[typing.List[typing.Tuple[str, str]],
-                                        typing.Optional[int]]] = {
-    "kernel": ([], None),
-    "no_mma": ([
-        ("          if (half == 0)\n            conv_tile::conv_mma<",
+_TF32_WARPS = "constexpr int kTf32Warps = C <= 32 ? 16 : 8;"
+_TF32_SLOTS = "constexpr int kTf32Slots = 2;"
+# the shipped TF32 tile (conv_tile.cuh tap_tf32): each K chunk's three
+# passes into a fresh accumulator, added into the sum after the chunk
+_CHUNK_PART = ("    float part[MW][NW][4];  // this K chunk's three passes\n"
+               "    zero(part);\n")
+_CHUNK_LOOP = ("#pragma unroll 2\n  for (int kc = 0; kc < kcs; ++kc) {\n"
+               "    uint32_t hi[MW][4]")
+_CHUNK_ADD = "    add_into(acc, part);\n  }\n}\n"
+# the cp.async ring: two shared-memory slots of one tap's TF32 fragments
+# each, tap g + 1 landing while the MMAs of tap g run, one barrier per tap
+_RING_HELPERS = r"""__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(conv_tile::smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+"""
+_RING_PREFETCH = """  int n_taps = 0;  // tap blocks of the resblock convs
+  for (int m = 0; m < 2 * n_res * n_steps; ++m) n_taps += plan[conv + m].z;
+  // block 0 lands while the stage input is computed
+  for (int i = threadIdx.x; i < kTap; i += kThreads)
+    cp_async16(ring + i, frags + i);
+  cp_async_commit();
+"""
+_RING_TAP = """          // block g has landed and every warp is done with block g - 1:
+          // its slot takes block g + 1
+          cp_async_wait_all();
+          __syncthreads();
+          if (g + 1 < n_taps) {
+            uint4* slot = ring + ((g + 1) & 1) * kTap;
+            const uint4* next = frags + (size_t)(g + 1) * kTap;
+            for (int i = threadIdx.x; i < kTap; i += kThreads)
+              cp_async16(slot + i, next + i);
+          }
+          cp_async_commit();
+          const uint4* wt = ring + (g & 1) * kTap;
+"""
+_STAGE_INPUT_F32 = "  stage_input<C, kThreads>(x, x0, p.ld, s, w, b, plan[0]"
+_PLAN_F32 = "  const StagePlan p(C, tile, halo, post_pad, 4, 0);\n"
+
+
+def _tf32_shape(warps: int, slots: int) -> typing.List[typing.Tuple[str, str,
+                                                                  str]]:
+    return [("stage.cu", _TF32_WARPS, f"constexpr int kTf32Warps = {warps};"),
+            ("stage.cu", _TF32_SLOTS, f"constexpr int kTf32Slots = {slots};")]
+
+
+class Variant(typing.NamedTuple):
+    """Text patches (file under csrc/, old, new), applied in order, each
+    to exactly one place; the warps of a block the wrapper must plan for
+    (None: unchanged); in f32, whether the TF32 fragments go through the
+    cp.async ring (the block plan then counts its two slots), and the
+    M-tile slots of a warp (None: unchanged)."""
+
+    patches: typing.List[typing.Tuple[str, str, str]]
+    warps: typing.Optional[int] = None
+    ring: bool = False
+    slots: typing.Optional[int] = None
+
+
+BF16_VARIANTS: typing.Dict[str, Variant] = {
+    "kernel": Variant([]),
+    "no_mma": Variant([
+        ("stage.cu", "          if (half == 0)\n            conv_tile::conv_mma<",
          "          if (false)\n            conv_tile::conv_mma<"),
-        ("          else\n            conv_tile::conv_mma<",
+        ("stage.cu", "          else\n            conv_tile::conv_mma<",
          "          else if (false)\n            conv_tile::conv_mma<"),
-    ], None),
-    "no_upsampler_fma": ([
-        ("          const float* xr = xin + ci * lin + r;",
+    ]),
+    "no_upsampler_fma": Variant([
+        ("stage.cu", "          const float* xr = xin + ci * lin + r;",
          "          if (ci >= 0) continue;\n"
          "          const float* xr = xin + ci * lin + r;"),
-    ], None),
-    "no_weight_staging": ([
-        ("            wsm[i] = __ldg(wf + i);", "            ;"),
-    ], None),
-    "no_fragment_lrelu": ([
-        ("conv_tile::conv_mma<1, NW, true,", "conv_tile::conv_mma<1, NW, false,"),
-    ], None),
-    "warps_8": ([(_WARPS, "constexpr int kMmaWarps = 8;")], 8),
-    "warps_16": ([(_WARPS, "constexpr int kMmaWarps = 16;")], 16),
+    ]),
+    "no_weight_staging": Variant([
+        ("stage.cu", "            wsm[i] = __ldg(wf + i);", "            ;"),
+    ]),
+    "no_fragment_lrelu": Variant([
+        ("stage.cu", "conv_tile::conv_mma<1, NW, true,",
+         "conv_tile::conv_mma<1, NW, false,"),
+    ]),
+    "warps_8": Variant(
+        [("stage.cu", _WARPS, "constexpr int kMmaWarps = 8;")], 8),
+    "warps_16": Variant(
+        [("stage.cu", _WARPS, "constexpr int kMmaWarps = 16;")], 16),
+}
+F32_VARIANTS: typing.Dict[str, Variant] = {
+    "kernel": Variant([]),
+    "no_mma": Variant([
+        ("stage.cu", "          if (half == 0)\n            conv_tile::tap_tf32<",
+         "          if (false)\n            conv_tile::tap_tf32<"),
+        ("stage.cu", "          else\n            conv_tile::tap_tf32<",
+         "          else if (false)\n            conv_tile::tap_tf32<"),
+    ]),
+    "no_upsampler_fma": BF16_VARIANTS["no_upsampler_fma"],
+    # where the MMA sums go: one accumulator over the whole conv, or a
+    # fresh one per tap, instead of one per K chunk
+    "one_accumulator": Variant([
+        ("conv_tile.cuh", _CHUNK_PART,
+         "    float(&part)[MW][NW][4] = acc;  // one accumulator\n"),
+        ("conv_tile.cuh", "    add_into(acc, part);\n", ""),
+    ]),
+    "flush_per_tap": Variant([
+        ("conv_tile.cuh", _CHUNK_PART, ""),
+        ("conv_tile.cuh", _CHUNK_LOOP,
+         "  float part[MW][NW][4];  // this tap's three passes\n"
+         "  zero(part);\n" + _CHUNK_LOOP),
+        ("conv_tile.cuh", _CHUNK_ADD, "  }\n  add_into(acc, part);\n}\n"),
+    ]),
+    # the TF32 fragments through a two-slot cp.async ring in shared memory
+    # instead of the read-only cache
+    "ring": Variant([
+        ("stage.cu", "// The stage of stage_mma_kernel in f32:",
+         _RING_HELPERS + "// The stage of stage_mma_kernel in f32:"),
+        ("stage.cu",
+         "  extern __shared__ __align__(16) unsigned char smem_raw[];\n"
+         + _PLAN_F32,
+         "  extern __shared__ __align__(16) unsigned char smem_raw[];\n"
+         "  const StagePlan p(C, tile, halo, post_pad, 4, 2 * kTap);\n"
+         "  uint4* ring = reinterpret_cast<uint4*>(smem_raw + p.w_offset);\n"),
+        ("stage.cu", _STAGE_INPUT_F32, _RING_PREFETCH + _STAGE_INPUT_F32),
+        ("stage.cu",
+         "          const uint4* wt = frags + (size_t)g * kTap;\n",
+         _RING_TAP),
+        ("conv_tile.cuh", "const uint4 b = __ldg(wl + (kc * nts + ni) * 32);",
+         "const uint4 b = wl[(kc * nts + ni) * 32];"),
+        # the barrier at the next conv's first tap orders its reads
+        ("stage.cu",
+         "        __syncthreads();  // the next conv reads what this one "
+         "wrote\n      }\n    }\n  }\n",
+         "      }\n    }\n  }\n  __syncthreads();\n"),
+        ("stage.cu", "  auto kernel = stage_tf32_kernel<C>;\n" + _PLAN_F32,
+         "  auto kernel = stage_tf32_kernel<C>;\n"
+         "  const StagePlan p(C, tile, halo, post_pad, 4,\n"
+         "                    2 * (C / 8) * (C / 8) * 32);\n"),
+    ], ring=True),
+    # warps of a block x 16-row M tiles a warp holds: more slots feed more
+    # MMAs from each B fragment read, at the cost of registers
+    "warps_8_slots_2": Variant(_tf32_shape(8, 2), 8, slots=2),
+    "warps_8_slots_4": Variant(_tf32_shape(8, 4), 8, slots=4),
+    "warps_12_slots_3": Variant(_tf32_shape(12, 3), 12, slots=3),
 }
 
 
-def build_variants() -> typing.Dict[str, ctypes.CDLL]:
-    """Each variant's source, patched and built (one nvcc each, together)
-    under the build directory beside a copy of its headers."""
-    source = stage.SOURCE.read_text()
-    root = stage.BUILD_DIR / "ablate"
-    root.mkdir(parents=True, exist_ok=True)
-    for header in build.source_files(stage.SOURCE)[1:]:
-        shutil.copy(header, root / header.name)
+def patched_sources(name: str, variant: Variant) -> typing.Dict[str, str]:
+    """The variant's copy of ``csrc/stage.cu`` and its headers, by file
+    name; raises if a patch does not apply to exactly one place."""
+    texts = {p.name: p.read_text()
+             for p in build.source_files(stage.SOURCE)}
+    for file, old, new in variant.patches:
+        if texts[file].count(old) != 1:
+            raise RuntimeError(f"{name}: a patch of {file} no longer applies")
+        texts[file] = texts[file].replace(old, new)
+    return texts
+
+
+def build_variants(
+    variants: typing.Dict[str, Variant], tag: str
+) -> typing.Dict[str, ctypes.CDLL]:
+    """Each variant's copy of ``csrc/``, patched and built (one nvcc each,
+    together) under the build directory."""
     jobs = {}
-    for name, (patches, _) in VARIANTS.items():
-        text = source
-        for old, new in patches:
-            if text.count(old) != 1:
-                raise RuntimeError(f"{name}: the patch no longer applies")
-            text = text.replace(old, new)
-        path = root / f"stage_{name}.cu"
-        path.write_text(text)
-        jobs[name] = path
+    for name, variant in variants.items():
+        root = stage.BUILD_DIR / "ablate" / f"{tag}_{name}"
+        root.mkdir(parents=True, exist_ok=True)
+        for file, text in patched_sources(name, variant).items():
+            (root / file).write_text(text)
+        jobs[name] = root / stage.SOURCE.name
 
     def compile_one(path):
-        out = build.library_path(path, root)
+        out = build.library_path(path, path.parent)
         build.compile_library(path, out)
         return out
 
@@ -89,17 +230,30 @@ def build_variants() -> typing.Dict[str, ctypes.CDLL]:
 
 
 @contextlib.contextmanager
-def using(lib: ctypes.CDLL, warps: typing.Optional[int]):
-    """Route ``hifigan_stage_fused`` to ``lib`` (and its warp count)."""
-    saved = stage._LIB, stage.mma_warps
+def using(lib: ctypes.CDLL, variant: Variant):
+    """Route ``hifigan_stage_fused`` to ``lib`` (and its block plan)."""
+    saved = (stage._LIB, stage.mma_warps, stage.TF32_SLOTS,
+             stage._smem_regions)
     stage._LIB = lib
-    if warps is not None:
-        stage.mma_warps = lambda channels: warps
+    if variant.warps is not None:
+        stage.mma_warps = lambda channels, dtype=None: variant.warps
+    if variant.slots is not None:
+        stage.TF32_SLOTS = variant.slots
+    if variant.ring:
+        regions = stage._smem_regions
+
+        def with_ring(weights, rows, dtype):
+            smem, room = regions(weights, rows, dtype)
+            # two taps' TF32 hi/lo fragments: 2 x (C/8)^2 x 32 uint4
+            return smem + 2 * weights.channels ** 2 * 8, room
+
+        stage._smem_regions = with_ring
     stage._pick_mma_rows_cached.cache_clear()
     try:
         yield
     finally:
-        stage._LIB, stage.mma_warps = saved
+        (stage._LIB, stage.mma_warps, stage.TF32_SLOTS,
+         stage._smem_regions) = saved
         stage._pick_mma_rows_cached.cache_clear()
 
 
@@ -124,19 +278,40 @@ def _stage(rng, c, c_in, post, device):
         } for j in range(3)} for key in ("convs1", "convs2")}
         for r, k in enumerate(KERNELS)
     }}
-    tree["ups"] = {"0": {
-        "weight": rng.randn(4, c_in, c).astype(np.float32) * 0.1,
-        "bias": rng.randn(c).astype(np.float32) * 0.1,
-    }}
+    if c_in:
+        tree["ups"] = {"0": {
+            "weight": rng.randn(4, c_in, c).astype(np.float32) * 0.1,
+            "bias": rng.randn(c).astype(np.float32) * 0.1,
+        }}
     if post:
         tree["conv_post"] = {
             "weight": rng.randn(7, c, 1).astype(np.float32) * 0.1
         }
     port = to_torch_params(tree, device)
-    kw = dict(ups_params=port["ups"]["0"], ups_stride=2, ups_padding=1)
+    kw = {}
+    if c_in:
+        kw.update(ups_params=port["ups"]["0"], ups_stride=2, ups_padding=1)
     if post:
         kw["post_params"] = port["conv_post"]
     return [port["resblocks"][str(r)] for r in range(3)], kw
+
+
+def _double(tree):
+    """A copy of a parameter tree with every tensor in float64."""
+    if isinstance(tree, torch.Tensor):
+        return tree.double()
+    if isinstance(tree, dict):
+        return {k: _double(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_double(v) for v in tree]
+    return tree
+
+
+def _bar_share(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """The largest error of ``got`` as a share of the f32 bar at ``ref``."""
+    ref = ref.double()
+    return float(((got.double() - ref).abs()
+                  / (2e-4 + 1e-3 * ref.abs())).max())
 
 
 def main(argv: typing.Optional[typing.Sequence[str]] = None) -> dict:
@@ -146,31 +321,54 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device visible: this profile needs one")
     dev = torch.device("cuda")
+    torch.backends.cudnn.allow_tf32 = False
     print(f"device: {torch.cuda.get_device_name(0)}", flush=True)
-    libs = build_variants()
+    libs = {torch.bfloat16: (BF16_VARIANTS, build_variants(BF16_VARIANTS,
+                                                           "bf16")),
+            torch.float32: (F32_VARIANTS, build_variants(F32_VARIANTS,
+                                                         "f32"))}
     rng = np.random.RandomState(0)
     result = {}
-    for name, c, c_in, post, t_in in (
-        ("last stage, 256 frames, B=4", 32, 64, True, 256 * 128),
-        ("C=64 stage + ups, 256 frames, B=4", 64, 128, False, 256 * 64),
+    for dtype, name, c, c_in, post, batch, t_in in (
+        (torch.bfloat16, "last stage, 256 frames, B=4", 32, 64, True, 4,
+         256 * 128),
+        (torch.bfloat16, "C=64 stage + ups, 256 frames, B=4", 64, 128, False,
+         4, 256 * 64),
+        (torch.float32, "last stage, 128 frames, B=1", 32, 64, True, 1,
+         128 * 128),
+        (torch.float32, "last stage, 256 frames, B=4", 32, 64, True, 4,
+         256 * 128),
+        (torch.float32, "C=64 stage alone, 256 frames, B=1", 64, None, False,
+         1, 256 * 128),
     ):
         rb, kw = _stage(rng, c, c_in, post, dev)
         weights = stage.pack_stage_weights(rb, KERNELS, DILATIONS,
-                                           device=dev, **kw)
+                                           device=dev, dtype=dtype, **kw)
         x = torch.from_numpy(
-            rng.randn(4, c_in, t_in).astype(np.float32)
-        ).to(dev, torch.bfloat16)
-        times = {}
-        for variant, lib in libs.items():
-            with using(lib, VARIANTS[variant][1]):
-                times[variant] = _cuda_ms(
-                    lambda: stage.hifigan_stage_fused(
+            rng.randn(batch, c_in or c, t_in).astype(np.float32)
+        ).to(dev, dtype)
+        plain = stage.hifigan_stage_plain(rb, x, KERNELS, DILATIONS, **kw)
+        exact = stage.hifigan_stage_plain(
+            _double(rb), x.double(), KERNELS, DILATIONS, **_double(kw))
+        variants, built = libs[dtype]
+        times, shares, shares_f64 = {}, {}, {}
+        for variant, lib in built.items():
+            with using(lib, variants[variant]):
+                def call():
+                    return stage.hifigan_stage_fused(
                         rb, x, KERNELS, DILATIONS, weights=weights, **kw
-                    ),
-                    args.loops,
-                )
-        result[name] = times
-        print(json.dumps({name: times}), flush=True)
+                    )
+
+                times[variant] = _cuda_ms(call, args.loops)
+                if dtype == torch.float32:
+                    got = call()
+                    shares[variant] = _bar_share(got, plain)
+                    shares_f64[variant] = _bar_share(got, exact)
+        key = f"{name} ({str(dtype)[6:]})"
+        result[key] = {"ms": times}
+        if shares:
+            result[key].update(bar_share=shares, bar_share_f64=shares_f64)
+        print(json.dumps({key: result[key]}), flush=True)
     return result
 
 

@@ -5,11 +5,13 @@ the default mode, warms it, then times
 ``synthesize_ids_batch`` at batch 1 (one sentence) and batch 4 (four),
 alternating the two, each call ending in the host copy of its audio.
 ``--no-speculation`` turns ``tpu.speculative_decode`` off in the voice's
-config.  Prints one JSON line: median, 10th and 90th percentile wall ms
-per call for each batch size, and the card's name and power limit.
-``--profile N`` adds, for N more calls at each batch size under
-``torch.profiler``, the host milliseconds per call in each CUDA runtime
-call and the number of device operations per call.
+config; ``--deterministic`` loads the voice in deterministic mode (the f32
+decoder).  Prints one JSON line: median, 10th and 90th percentile wall ms
+per call for each batch size, the fused-stage kernel launches per call,
+and the card's name and power limit.  ``--profile N`` adds, for N more
+calls at each batch size under ``torch.profiler``, the host milliseconds
+per call in each CUDA runtime call, the number of device operations per
+call and their summed device milliseconds per call.
 
 Only the port's public modules are used, so the script also times an
 older tree: run it by path with that tree first on ``PYTHONPATH``::
@@ -44,10 +46,12 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--calls", type=int, default=30)
     parser.add_argument("--no-speculation", action="store_true")
+    parser.add_argument("--deterministic", action="store_true")
     parser.add_argument("--label", default="")
     parser.add_argument("--profile", type=int, default=0)
     args = parser.parse_args(argv)
 
+    from mimic3_tpu_torch.ops import stage
     from mimic3_tpu_torch.runtime.testvoice import create_test_voice
     from mimic3_tpu_torch.runtime.voice import load_from_directory
 
@@ -59,7 +63,8 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> dict:
             config = json.loads(config_path.read_text())
             config["tpu"]["speculative_decode"] = False
             config_path.write_text(json.dumps(config))
-        voice = load_from_directory(voice_dir, share_sessions=False)
+        voice = load_from_directory(voice_dir, share_sessions=False,
+                                    deterministic=args.deterministic)
         session = voice.session
         ids = []
         for text in TEXTS:
@@ -72,6 +77,7 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> dict:
             for seed in range(3):
                 session.synthesize_ids_batch(seqs, seed=seed)
         walls: typing.Dict[int, typing.List[float]] = {1: [], 4: []}
+        launches = stage.launches
         for i in range(args.calls):
             for b, seqs in batches.items():
                 torch.cuda.synchronize()
@@ -86,7 +92,10 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> dict:
         result = {
             "label": args.label,
             "speculation": not args.no_speculation,
+            "deterministic": args.deterministic,
             "calls": args.calls,
+            "stage_launches_per_call": (stage.launches - launches)
+            / (2 * args.calls),
             "card": card,
             **{
                 f"b{b}_ms": {
@@ -109,7 +118,8 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> dict:
 
 def _profile(session, seqs, calls: int) -> dict:
     """Host ms per call in the six costliest CUDA runtime calls
-    (``cuda*`` events) and device operations (kernels, copies) per call."""
+    (``cuda*`` events), and device operations (kernels, copies) per call
+    and their summed device ms per call."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -120,14 +130,17 @@ def _profile(session, seqs, calls: int) -> dict:
             session.synthesize_ids_batch(seqs, seed=1000 + i)
     runtime = {}
     device_ops = 0
+    device_us = 0.0
     for e in prof.key_averages():
         if e.key.startswith("cuda") and e.cpu_time_total > 0:
             runtime[e.key] = round(e.cpu_time_total / 1000.0 / calls, 3)
         if e.device_type == torch.autograd.DeviceType.CUDA:
             device_ops += e.count
+            device_us += e.self_device_time_total
     top = dict(sorted(runtime.items(), key=lambda kv: -kv[1])[:6])
     return {"cuda_runtime_host_ms": top,
-            "device_ops_per_call": device_ops / calls}
+            "device_ops_per_call": device_ops / calls,
+            "device_ms_per_call": device_us / 1000.0 / calls}
 
 
 if __name__ == "__main__":

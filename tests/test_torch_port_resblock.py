@@ -23,6 +23,7 @@ import jax.numpy as jnp
 
 from mimic3_tpu.models.vits.hifigan import resblock1 as jax_resblock1
 from mimic3_tpu.ops.resblock import fused_resblock_subblock as jax_subblock
+from mimic3_tpu_torch.ops import mma
 from mimic3_tpu_torch.ops import resblock as tres
 
 REPO = Path(__file__).resolve().parents[1]
@@ -120,43 +121,59 @@ def test_ragged_length_matches_jax_resblock():
 
 
 def test_pack_subblock_weights_layout():
-    """FFMA layout (float32, and bf16 below 16 channels): [Cout, Cin, K]
-    -> [Cin, K, Cout], rounded to the activation dtype and held as
-    float32; a missing bias packs as zeros.  bf16 from 16 channels packs
-    MMA fragments instead (test_torch_port_mma.py)."""
+    """FFMA layout (C = 8, under the MMA depth, either dtype): [Cout, Cin,
+    K] -> [Cin, K, Cout], rounded to the activation dtype and held as
+    float32; a missing bias packs as zeros.  From 16 channels both dtypes
+    pack MMA fragments instead: bf16, or TF32 hi/lo for float32, with the
+    biases rounded to the dtype (test_torch_port_mma.py,
+    test_torch_port_tf32.py)."""
     w = torch.randn(8, 8, 3)
-    packed = tres.pack_subblock_weights(w, None, w * 2, None, torch.bfloat16)
-    assert packed.w1.dtype == torch.float32 and not packed.mma
-    assert packed.w1.shape == (8, 3, 8)
-    torch.testing.assert_close(
-        packed.w1, w.to(torch.bfloat16).float().permute(1, 2, 0)
-    )
-    assert not packed.b1.any() and packed.b2.shape == (8,)
-    assert (packed.channels, packed.kernel_size) == (8, 3)
+    for dtype in (torch.bfloat16, torch.float32):
+        packed = tres.pack_subblock_weights(w, None, w * 2, None, dtype)
+        assert packed.w1.dtype == torch.float32 and not packed.mma
+        assert packed.w1.shape == (8, 3, 8)
+        torch.testing.assert_close(
+            packed.w1, w.to(dtype).float().permute(1, 2, 0)
+        )
+        assert not packed.b1.any() and packed.b2.shape == (8,)
+        assert (packed.channels, packed.kernel_size) == (8, 3)
     w = torch.randn(16, 16, 3)
-    packed = tres.pack_subblock_weights(w, None, w * 2, None, torch.float32)
-    assert not packed.mma and packed.w1.shape == (16, 3, 16)
-    torch.testing.assert_close(packed.w1, w.permute(1, 2, 0))
-    assert tres.pack_subblock_weights(
-        w, None, w * 2, None, torch.bfloat16
-    ).mma
+    b = torch.randn(16)
+    packed = tres.pack_subblock_weights(w, b, w * 2, None, torch.float32)
+    assert packed.mma and packed.w1.shape == (3, 2, 2, 32, 4)
+    torch.testing.assert_close(packed.w1, mma.pack_conv_fragments_tf32(w))
+    torch.testing.assert_close(packed.b1, b)  # f32 bias, not rounded
+    bf = tres.pack_subblock_weights(w, b, w * 2, None, torch.bfloat16)
+    assert bf.mma and bf.w1.shape == (3, 1, 1, 32, 4)
+    torch.testing.assert_close(bf.b1, b.to(torch.bfloat16).float())
     with pytest.raises(ValueError):
         tres.pack_subblock_weights(w, None, torch.randn(16, 16, 5), None,
                                    torch.float32)
 
 
 def test_pick_tile_fits_shared_memory():
-    """Two blocks per SM where a tile of 64 allows it, else one; the
-    widest full-width case (C=256, K=11, d=5) still fits."""
+    """FFMA (C = 8): two blocks per SM where a tile of 64 allows it, else
+    one, short sequences short tiles.  From 16 channels f32 takes the
+    tensor-core plan, whose f32 buffers (twice the bf16 bytes) still fit
+    one block at the widest full-width case (C=256, K=11, d=5) and give
+    two blocks an SM at the profiling shape."""
     def smem(c, k, d, tile):
         h1, h2 = d * (k - 1) // 2, (k - 1) // 2
         return 4 * c * ((tile + 2 * h2 + 2 * h1) + (tile + 2 * h2))
 
-    assert tres.pick_tile(128, 3, 5, 65536) == 64  # profiling shape
-    assert smem(128, 3, 5, 64) <= tres._HALF_SMEM_BYTES
-    tile = tres.pick_tile(256, 11, 5, 2048)
-    assert tile == 64 and smem(256, 11, 5, tile) <= tres._MAX_SMEM_BYTES
-    assert tres.pick_tile(32, 3, 1, 5) == 8  # short sequences, short tiles
+    assert tres.pick_tile(8, 3, 5, 65536) == 256
+    assert smem(8, 3, 5, 256) <= tres._HALF_SMEM_BYTES
+    tile = tres.pick_tile(8, 11, 5, 2048)
+    assert tile == 256 and smem(8, 11, 5, tile) <= tres._MAX_SMEM_BYTES
+    assert tres.pick_tile(8, 3, 1, 5) == 8  # short sequences, short tiles
+    for c, k, d, t, b, two_per_sm in ((256, 11, 5, 2048, 1, False),
+                                      (128, 3, 5, 65536, 16, True)):
+        rows, groups = tres.pick_mma_config(c, k, d, t, b, torch.float32)
+        used = tres.mma_smem_bytes(c, k, d, rows, groups, torch.float32)
+        assert used <= tres._MAX_SMEM_BYTES
+        assert (used <= tres._HALF_SMEM_BYTES) == two_per_sm
+        # f32 rows and h take twice the bf16 bytes
+        assert used > tres.mma_smem_bytes(c, k, d, rows, groups)
 
 
 def test_wrapper_raises_off_cpu_without_fallback():

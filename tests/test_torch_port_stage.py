@@ -136,7 +136,29 @@ def test_pack_stage_weights_layout():
         conv, pt["resblock_params"][1]["convs2"]["1"]["weight"].permute(1, 2, 0)
     )
     assert plan[-1][2] == 7 and float(w.b[plan[-1][1]]) == 0.0  # no post bias
-    assert tstage._pick_tile(w) == 256
+    # C=32 runs on tensor cores in both dtypes, and a pack carries the
+    # fragments of the dtype it is packed for: bf16 by default, TF32 hi/lo
+    # for float32 (4 bytes per weight and K chunk of 16 against 16), with
+    # the same f32 weights and plan, and an f32 plan that fits one block
+    assert tstage.uses_mma(32, torch.float32)
+    assert tstage.uses_mma(32, torch.bfloat16)
+    w32 = tstage.pack_stage_weights(
+        pt["resblock_params"], KERNELS, DILATIONS,
+        ups_params=pt["ups_params"], ups_stride=2, ups_padding=1,
+        post_params=pt["post_params"], dtype=torch.float32,
+    )
+    assert (w.dtype, w32.dtype) == (torch.bfloat16, torch.float32)
+    assert w32.fragments.numel() == 4 * w.fragments.numel()
+    torch.testing.assert_close(w32.w, w.w, atol=0, rtol=0)
+    assert torch.equal(w32.plan, w.plan)
+    rows = tstage._pick_mma_rows(w32, 128 * 256, 1, torch.float32)
+    assert tstage.mma_smem_bytes(w32, rows, torch.float32) <= 232448
+    # C=8 stays on FFMA: the tile of its four f32 buffers
+    _, pt8 = _both(_stage_tree(rng, 8))
+    w8 = tstage.pack_stage_weights(pt8["resblock_params"], KERNELS, DILATIONS,
+                                   dtype=torch.float32)
+    assert w8.fragments is None and not tstage.uses_mma(8, torch.float32)
+    assert tstage._pick_tile(w8) == 256
 
 
 def test_wrapper_raises_off_cpu_without_fallback():
