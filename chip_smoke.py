@@ -37,7 +37,12 @@ just before it and read just after:
   launched per shard), a dp above the visible cards refused, and
   ``mimic3-torch-train`` in as many ranks under ``torch.distributed.run``
   against the one-process run's first 3 steps, with the ranks'
-  parameters compared after them.
+  parameters compared after them;
+- tensor parallel: ``use_tp`` sessions over a dp 1 and a dp 2 mesh of tp
+  2 on repeats of the one card (or the visible cards in rows of two)
+  against one device, f32 and bf16, a stream's first chunk, the gathers
+  and reductions per call, no stage launch (the reference turns the
+  kernel off under tp), and the time per call.
 
     python3 chip_smoke.py
 
@@ -1684,6 +1689,227 @@ def dp_path(root, voice_dir, card_line, train_steps):
     return stage.launches
 
 
+# ---------------------------------------------------------------------------
+# tensor parallel
+# ---------------------------------------------------------------------------
+
+
+def tp_meshes() -> typing.List[typing.List[str]]:
+    """The device lists of the ``[tp]`` phase (tp 2): on one card a dp 1
+    and a dp 2 mesh of repeats of ``cuda:0``, else the visible cards as
+    dp = cards // 2 rows of two."""
+    cards = torch.cuda.device_count()
+    if cards == 1:
+        return [["cuda:0"] * 2, ["cuda:0"] * 4]
+    return [[f"cuda:{i}" for i in range(cards // 2 * 2)]]
+
+
+def tp_bf16_witness(one, split, seqs, **kw) -> str:
+    """Where the bf16 drift of a tp session comes from (phase 17; printed,
+    no bar).  ``one`` is a one-device session and ``split`` a ``use_tp``
+    session of the same weights and dtype, speculation off; in the
+    decoder only the upsamplers are split.  Each synthesizes ``seqs``
+    once with the decoder's input latents captured; then the whole decoder on the split
+    session's latent (the encoder's and flow's f32 differences alone),
+    the split decoder on the one-device latent (the split upsamplers
+    alone) and both (the session's drift), each against the whole
+    decoder on the one-device latent; each upsampler's split output
+    against the same channels of the whole conv (the same products summed
+    at another shape) in the decoder's dtype and in f32; and a control
+    with no split: row 0 of the whole decoder against the same row
+    decoded alone."""
+    from mimic3_tpu_torch.models.vits.layers import conv_transpose1d
+    from mimic3_tpu_torch.runtime.session import full_f32_convolutions
+
+    latents = []
+    for session in (one, split):
+        model, seen = session.model, []
+
+        def grab(dec, z, g=None, stage_weights=None, _decode=(
+                model.decode_waveform), _seen=seen):
+            _seen.append((z.clone(), g))
+            return _decode(dec, z, g=g, stage_weights=stage_weights)
+
+        model.decode_waveform = grab
+        try:
+            session.synthesize_ids_batch(seqs, **kw)
+        finally:
+            del model.decode_waveform
+        # one latent per dp row, in row order: the batch's rows
+        latents.append((torch.cat([z.to(seen[0][0].device)
+                                   for z, _ in seen]), seen[0][1]))
+    (z_one, g), (z_split, _) = latents
+    dec_one = one._replicas[0].params["dec"]
+    dec_split = split._replicas[0].params["dec"]
+
+    def audio(session, dec, z):
+        return session.model.decode_waveform(dec, z, g=g).float().cpu()
+
+    def min_corr(a, b):
+        return min(corr(x, y) for x, y in zip(a.numpy(), b.numpy()))
+
+    hp = one.model.hp
+    with torch.inference_mode(), full_f32_convolutions():
+        want = audio(one, dec_one, z_one)
+        z_diff = float((z_one - z_split.to(z_one.device)).abs().max())
+        out = [
+            f"latent max abs diff {z_diff:.3e} (f32); against the whole "
+            f"decoder on the one-device latent, min corr: whole decoder on "
+            f"the tp latent {min_corr(want, audio(one, dec_one, z_split)):.7f}"
+            f", upsamplers split on the one-device latent "
+            f"{min_corr(want, audio(split, dec_split, z_one)):.7f}, both "
+            f"{min_corr(want, audio(split, dec_split, z_split)):.7f}; no "
+            f"split, row 0 at B={z_one.shape[0]} against B=1: corr "
+            f"{corr(want[0].numpy(), audio(one, dec_one, z_one[:1])[0].numpy()):.7f}"
+        ]
+        gen = torch.Generator().manual_seed(7)
+        for i, (u, k) in enumerate(zip(hp.upsample_rates,
+                                       hp.upsample_kernel_sizes)):
+            cin = dec_one["ups"][str(i)]["weight"].shape[0]
+            x = torch.randn(4, cin, 256, generator=gen).to(z_one.device)
+            row = []
+            for dtype in (one.model.decoder_dtype, torch.float32):
+                conv = dict(stride=u, padding=(k - u) // 2, dtype=dtype)
+                a = conv_transpose1d(x, dec_one["ups"][str(i)], **conv)
+                b = conv_transpose1d(x, dec_split["ups"][str(i)], **conv)
+                diff = (a.float() - b.to(a.device).float()).abs()
+                row.append(
+                    f"{str(dtype)[6:]} max abs diff {float(diff.max()):.3e} "
+                    f"({float((diff > 0).float().mean()) * 100:.2f}% of "
+                    f"outputs differ, max |out| {float(a.abs().max()):.3g})")
+            out.append(f"ups {i} ({cin} -> {cin // 2}): " + ", ".join(row))
+    return "; ".join(out)
+
+
+def tp_path(root, voice_dir, card_line):
+    """Tensor parallel (phase 17): ``use_tp`` sessions over each of
+    :func:`tp_meshes` (f32, no speculation, so each call runs one duration
+    pass and one decode per dp row) against one device: audio within 2e-5
+    of the one-device session with the kernel off and equal durations,
+    corr >= 0.999 with the default one-device session (the f32 stage
+    kernel on), bf16 corr > 0.999 with the one-device bf16 session with
+    the kernel off, an equal first stream chunk, no stage launch, the
+    gathers and reductions per call, and the wall and device time per
+    call at B = 1 and 4; on the first mesh, :func:`tp_bf16_witness`.
+    Returns the phase's stage launches."""
+    from mimic3_tpu_torch.config import TrainingConfig
+    from mimic3_tpu_torch.ops import stage
+    from mimic3_tpu_torch.parallel import make_mesh
+    from mimic3_tpu_torch.parallel import tensor as tpt
+    from mimic3_tpu_torch.runtime.convert import load_pytree_npz
+    from mimic3_tpu_torch.runtime.session import TorchVitsSession
+    from mimic3_tpu_torch.runtime.voice import load_from_directory
+
+    t_phase = time.perf_counter()
+    tp_dir = voice_copy(voice_dir, root / "en_US" / "tp_low",
+                        speculative_decode=False)
+    plain_dir = voice_copy(voice_dir, root / "en_US" / "tp_plain_low",
+                           speculative_decode=False,
+                           pallas_stage_max_channels=0)
+    config = TrainingConfig.load_path(tp_dir / "config.json")
+    params = load_pytree_npz(tp_dir / "generator.npz")
+    voice = load_from_directory(plain_dir, share_sessions=False,
+                                deterministic=True)
+    seqs = [phoneme_ids(voice, t) for t in DP_TEXTS]
+    stream_ids = phoneme_ids(voice, STREAM_TEXT)
+    det = dict(noise_scale=0.0, noise_w=0.0, seed=3)
+    # the one-device references, before the counted window
+    plain = voice.session
+    plain_bf16 = load_from_directory(plain_dir, share_sessions=False).session
+    default = TorchVitsSession(config, params, deterministic=True,
+                               device="cuda:0")
+    want = plain.synthesize_ids_batch(seqs, **det)
+    want_default = default.synthesize_ids_batch(seqs, **det)
+    want_bf16 = plain_bf16.synthesize_ids_batch(seqs, seed=5)
+    want_chunk = next(iter(plain.synthesize_ids_chunked(
+        stream_ids, noise_scale=0.0, noise_w=0.0, **STREAM_GRID)))
+    padded = plain._pad(seqs, None, "duration")
+
+    def durations(session):
+        ids, lengths, sid = padded
+        rep = session._replicas[0]
+        d, _ = session.model.infer_durations(
+            rep.params, session._put(ids, rep.device),
+            session._put(lengths, rep.device), 3, 1.0, 0.0,
+            sid=session._sid(sid, rep.device))
+        return d.cpu().numpy()
+
+    want_durations = durations(plain)
+    hp = plain.model.hp
+    stage.launches = 0
+    timings = []
+    for devices in tp_meshes():
+        mesh = make_mesh(devices=devices, tp=2)
+        name = f"dp{mesh.shape['dp']}xtp2"
+        session = TorchVitsSession(config, params, deterministic=True,
+                                   mesh=mesh, use_tp=True)
+        if session.model.stage_max_channels != 0 or any(
+                r.stage_weights for r in session._replicas):
+            raise AssertionError(f"{name}: the stage gate is not 0")
+        tpt.gathers = tpt.reductions = 0
+        got = session.synthesize_ids_batch(seqs, **det)
+        per_call = (tpt.reductions, tpt.gathers)
+        # per dp row: the encoder's FFNs in the duration pass and again in
+        # the decode pass, and the upsamplers
+        expect = (mesh.shape["dp"] * 2 * hp.n_layers,
+                  mesh.shape["dp"] * len(hp.upsample_rates))
+        err = max(float(np.abs(a - b).max()) if a.shape == b.shape
+                  else np.inf for a, b in zip(got, want))
+        same_durations = bool(np.array_equal(durations(session),
+                                             want_durations))
+        c_default = min(corr(a, b) if a.shape == b.shape else -1.0
+                        for a, b in zip(got, want_default))
+        say("tp", f"{name} over {devices} (f32, deterministic) against "
+            f"one device, kernel off: max abs err {err:.3e} (bar 2e-5), "
+            f"durations equal: {same_durations}; against the default "
+            f"one-device session (f32 stage kernel on): min corr "
+            f"{c_default:.7f} (bar 0.999); per call {per_call[0]} "
+            f"reductions, {per_call[1]} gathers (expected {expect[0]}, "
+            f"{expect[1]})")
+        if not (err <= 2e-5 and same_durations and c_default >= 0.999):
+            raise AssertionError(f"{name} audio disagrees with one device")
+        if per_call != expect:
+            raise AssertionError(f"{name}: collectives per call {per_call}")
+        bf16 = TorchVitsSession(config, params, mesh=mesh, use_tp=True)
+        c_bf16 = min(corr(a, b) if a.shape == b.shape else -1.0
+                     for a, b in zip(
+                         bf16.synthesize_ids_batch(seqs, seed=5), want_bf16))
+        chunk = next(iter(session.synthesize_ids_chunked(
+            stream_ids, noise_scale=0.0, noise_w=0.0, **STREAM_GRID)))
+        chunk_err = (float(np.abs(chunk - want_chunk).max())
+                     if chunk.shape == want_chunk.shape else np.inf)
+        say("tp", f"{name}: bf16 against the one-device bf16 session, "
+            f"kernel off: min corr {c_bf16:.7f} (bar > 0.999); first "
+            f"stream chunk ({chunk.size} samples) max abs err "
+            f"{chunk_err:.3e} (bar 2e-5)")
+        if not (c_bf16 > 0.999 and chunk_err <= 2e-5):
+            raise AssertionError(f"{name}: bf16 or stream disagrees")
+        if not timings:
+            say("tp", f"{name} bf16 witness: "
+                + tp_bf16_witness(plain_bf16, bf16, seqs, seed=5))
+        timings.append((name, session))
+    for name, session in timings:
+        for rows in (1, 4):
+            wall, _ = time_session(session, seqs[:rows], 5)
+            dev = device_ms_per_call(session, seqs[:rows])
+            say("time", f"{name} (tp), {rows} sequence(s) per call, f32: "
+                f"wall {wall * 1000:.1f} ms, device {dev:.2f} ms per call "
+                f"({card_line})")
+    launches = stage.launches
+    say("tp", f"stage launches during the tp sessions' calls: {launches} "
+        "(must be 0)")
+    if launches != 0:
+        raise AssertionError("a tp session launched the stage kernel")
+    for rows in (1, 4):
+        wall, _ = time_session(plain, seqs[:rows], 5)
+        dev = device_ms_per_call(plain, seqs[:rows])
+        say("time", f"one device, kernel off, {rows} sequence(s) per call, "
+            f"f32: wall {wall * 1000:.1f} ms, device {dev:.2f} ms per call "
+            f"({card_line})")
+    say("tp", f"phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     # -- 1. environment ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1838,6 +2064,7 @@ def main() -> int:
         launches["train"], launches["train_serve"], train_steps = (
             train_path(root, card_line))
         launches["dp"] = dp_path(root, voice_dir, card_line, train_steps)
+        launches["tp"] = tp_path(root, voice_dir, card_line)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

@@ -13,6 +13,7 @@ import typing
 import torch
 import torch.nn.functional as F
 
+from ...parallel import tensor as tp
 from .layers import Params, conv1d, embedding, layer_norm
 
 WINDOW_SIZE = 4
@@ -84,8 +85,19 @@ def relative_attention(
 def ffn(
     x: torch.Tensor, p: Params, x_mask: torch.Tensor, kernel_size: int
 ) -> torch.Tensor:
-    """Conv feed-forward: conv(k) -> relu -> conv(k), masked."""
+    """Conv feed-forward: conv(k) -> relu -> conv(k), masked.
+
+    With the convs split over a tp row (Megatron style: ``conv_1`` on its
+    output channels, ``conv_2`` on its input channels) the hidden
+    channels stay split between them, relu and mask per part, and the
+    one cross-device step is ``conv_2``'s sum of partial outputs.
+    """
     pad = (kernel_size - 1) // 2
+    if tp.is_split(p["conv_1"]):
+        h = tp.conv(x * x_mask, p["conv_1"], padding=pad, keep_split=True)
+        h = tp.Split(tuple(torch.relu(t) * x_mask.to(t.device)
+                           for t in h.parts), h.axis)
+        return tp.conv(h, p["conv_2"], padding=pad) * x_mask
     y = torch.relu(conv1d(x * x_mask, p["conv_1"], padding=pad))
     y = conv1d(y * x_mask, p["conv_2"], padding=pad)
     return y * x_mask

@@ -11,6 +11,11 @@ Counterpart of ``mimic3_tpu/models/vits/layers.py``.  Conventions:
   training weights keep the ``weight_v``/``weight_g`` pair, resolved at
   every call by :func:`conv_weight` so the gradient reaches ``v`` and
   ``g``.
+- on a tensor-parallel mesh a conv's leaves may be split over the tp
+  row's devices (``parallel/tensor.py::Split``): :func:`conv1d` and
+  :func:`conv_transpose1d` route such a layer to ``parallel/tensor.py``
+  and return the whole output, so their callers run unchanged; any other
+  function given a split leaf raises.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ import typing
 
 import torch
 import torch.nn.functional as F
+
+from ...parallel import tensor as tp
 
 Params = typing.Dict[str, typing.Any]
 
@@ -55,6 +62,9 @@ def conv1d(
     """1-D convolution (torch ``Conv1d`` semantics), computed in x's dtype."""
     if dtype is not None:
         x = x.to(dtype)
+    if tp.is_split(p):
+        return tp.conv(x, p, stride=stride, padding=padding,
+                       dilation=dilation, groups=groups)
     bias = p.get("bias")
     return F.conv1d(
         x,
@@ -79,6 +89,8 @@ def conv_transpose1d(
     ``(T-1)*stride - 2*padding + K``."""
     if dtype is not None:
         x = x.to(dtype)
+    if tp.is_split(p):
+        return tp.conv(x, p, transpose=True, stride=stride, padding=padding)
     bias = p.get("bias")
     return F.conv_transpose1d(
         x,

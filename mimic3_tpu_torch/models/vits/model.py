@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ...config import ModelConfig
+from ...parallel import tensor as tp
 from . import duration as dur
 from . import encoder as enc
 from . import flow as flw
@@ -511,6 +512,11 @@ class VitsModel:
             stage_max_channels=self.stage_max_channels,
             **self._decoder_kwargs(),
         )
+        if any(tp.is_split(dec_params["ups"][str(i)]) for i in stages):
+            raise ValueError(
+                "the fused stage takes whole weights: a tp-split decoder "
+                "runs with the stage gate at 0"
+            )
         return hfg.pack_stages(
             dec_params, stages, device=device, dtype=self.decoder_dtype,
             **self._decoder_kwargs()

@@ -1,5 +1,6 @@
-"""Data parallelism on torch devices and ``torch.distributed`` (port of
-``mimic3_tpu/parallel``)."""
+"""Data and tensor parallelism on torch devices and ``torch.distributed``
+(port of ``mimic3_tpu/parallel``; ``tensor`` holds the tp collectives that
+XLA inserts for the reference)."""
 
 from .distributed import (  # noqa: F401
     all_gather_rows,
@@ -16,3 +17,4 @@ from .mesh import (  # noqa: F401
     shard_batch,
     shard_params,
 )
+from .tensor import Split  # noqa: F401

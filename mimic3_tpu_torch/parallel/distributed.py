@@ -149,6 +149,7 @@ def _world() -> typing.Tuple[int, int]:
 
 def make_global_mesh(
     tp: int = 1,
+    dp_outer: typing.Optional[int] = None,
     device: typing.Union[str, torch.device, None] = None,
 ):
     """Mesh over EVERY process's devices.
@@ -156,13 +157,30 @@ def make_global_mesh(
     One process (no group): every visible card, or one CPU replica when
     ``device`` names the CPU.  Several processes: each rank's
     :func:`local_device`, ordered by rank, so the rows of a batch split
-    over dp in rank order; dp is ``total_devices // tp``.
+    over dp in rank order.  ``dp_outer`` overrides the data-parallel
+    size (default ``total_devices // tp``); the mesh takes the first
+    ``dp * tp`` devices.  Each rank holds one device, so with several
+    processes a ``tp > 1`` row would span ranks: that raises
+    ``NotImplementedError`` (tp across processes is not ported), and a
+    ``dp_outer`` other than the number of ranks raises ``ValueError``
+    (a rank outside the mesh would own no row).
     """
     import torch.distributed as dist
 
     from .mesh import make_mesh
 
     rank, world = _world()
+    if world > 1 and tp > 1:
+        raise NotImplementedError(
+            f"tp={tp} over {world} processes of one device each: a tp row "
+            "would span processes, and tensor parallelism across processes "
+            "is not ported; see ROADMAP.md"
+        )
+    if world > 1 and dp_outer is not None and dp_outer != world:
+        raise ValueError(
+            f"dp_outer={dp_outer} over {world} processes of one device "
+            "each: every rank must own one dp row"
+        )
     if world == 1:
         platform = local_device(device).type
         devices = make_mesh(platform=platform).devices.ravel().tolist()
@@ -172,7 +190,7 @@ def make_global_mesh(
         dist.all_gather_object(names, str(local_device(device)))
         devices = [torch.device(n) for n in names]
         owners = list(range(world))
-    dp = len(devices) // tp
+    dp = dp_outer if dp_outer is not None else len(devices) // tp
     mesh = make_mesh(n_devices=dp * tp, dp=dp, tp=tp, devices=devices)
     processes = np.asarray(owners[: dp * tp], np.int64).reshape(dp, tp)
     return dataclasses.replace(mesh, processes=processes, process_index=rank)

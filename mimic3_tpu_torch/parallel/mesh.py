@@ -9,9 +9,14 @@ them all unless :func:`~.distributed.make_global_mesh` spans several):
   device runs its own rows (``TorchVitsSession``'s decode, the train
   step's shard).  VITS-low needs nothing else.
 - **tp** (tensor parallel): :data:`_TP_RULES` name the wide weights that
-  a tensor-parallel decoder would split, kept as data for scaled-up
-  configs; nothing in the port executes a ``tp > 1`` mesh yet
-  (``ROADMAP.md``).
+  each dp row splits over its ``tp`` devices (with ``use_tp``): the
+  encoder FFNs Megatron style, the decoder's upsamplers by output
+  channel.  :func:`shard_params` places the parts
+  (``parallel/tensor.py::Split``) and ``parallel/tensor.py`` runs the
+  convs over them with explicit gathers and reductions, where XLA
+  inserts them for the reference.  Every other leaf lives on the row's
+  first device.  A row's devices belong to one process: tp across
+  processes is not ported (``ROADMAP.md``).
 
 The device list, when none is given, is the visible cards ``cuda:0..n-1``
 (raising when fewer are visible) or, on the CPU, ``n`` replicas on the one
@@ -27,6 +32,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from .tensor import Split
 
 Params = typing.Dict[str, typing.Any]
 
@@ -67,14 +74,29 @@ class Mesh:
     def multiprocess(self) -> bool:
         return bool((self.processes != self.process_index).any())
 
+    def local_rows(
+        self,
+    ) -> typing.List[typing.Tuple[int, typing.Tuple[torch.device, ...]]]:
+        """(dp index, the row's tp devices) of the dp rows this process
+        holds, in dp order.  A row that spans processes raises
+        ``NotImplementedError``."""
+        rows = []
+        for i, owners in enumerate(self.processes):
+            mine = owners == self.process_index
+            if mine.any() and not mine.all():
+                raise NotImplementedError(
+                    f"dp row {i} spans processes {sorted(set(owners))}: "
+                    "tensor parallelism across processes is not ported; "
+                    "see ROADMAP.md"
+                )
+            if mine.all():
+                rows.append((i, tuple(self.devices[i])))
+        return rows
+
     def local_shards(self) -> typing.List[typing.Tuple[int, torch.device]]:
-        """(dp index, device) of the dp rows this process holds (column
-        0 of the tp axis), in dp order."""
-        return [
-            (i, self.devices[i, 0])
-            for i in range(self.devices.shape[0])
-            if self.processes[i, 0] == self.process_index
-        ]
+        """(dp index, first device) of the dp rows this process holds
+        (column 0 of the tp axis), in dp order."""
+        return [(i, row[0]) for i, row in self.local_rows()]
 
 
 def _default_devices(
@@ -149,16 +171,15 @@ def param_sharding(
     shards where a rule matches (only with ``use_tp`` and a mesh whose tp
     axis is larger than 1), else None (replicated)."""
     on = use_tp and mesh.shape["tp"] > 1
+    return _map_tree(lambda path, _: _tp_axis(path) if on else None, params)
 
-    def plan(path: str, leaf) -> typing.Optional[int]:
-        del leaf
-        if on:
-            for pattern, axis in _TP_RULES:
-                if _match(path, pattern):
-                    return axis
-        return None
 
-    return _map_tree(plan, params)
+def _tp_axis(path: str) -> typing.Optional[int]:
+    """The axis the first matching rule splits, else None."""
+    for pattern, axis in _TP_RULES:
+        if _match(path, pattern):
+            return axis
+    return None
 
 
 def shard_rows(index: int, count: int, batch: int) -> slice:
@@ -191,22 +212,40 @@ def batch_sharding(mesh: Mesh) -> BatchSharding:
 def shard_params(
     mesh: Mesh, params: Params, use_tp: bool = False
 ) -> typing.List[Params]:
-    """One replica of ``params`` (a tree of tensors) per dp row this
-    process holds, on that row's device; rows on the same device share
-    one copy."""
-    if use_tp and mesh.shape["tp"] > 1:
-        raise NotImplementedError(
-            "tensor-parallel placement (tp > 1) is not ported; see "
-            "ROADMAP.md"
-        )
-    by_device: typing.Dict[torch.device, Params] = {}
-    out = []
-    for _, device in mesh.local_shards():
-        if device not in by_device:
-            by_device[device] = _map_tree(
-                lambda _, t: t.to(device), params
+    """One tree of ``params`` (a tree of tensors) per dp row this process
+    holds; rows on the same devices share one tree.
+
+    Each leaf :func:`param_sharding` marks becomes a
+    :class:`~.tensor.Split` in T contiguous parts along its axis, part
+    ``j`` on the row's device ``j``; a marked axis that does not divide by
+    T raises ``ValueError``.  Every other leaf, and every leaf without
+    ``use_tp`` or on a ``tp == 1`` mesh, lives on the row's first device.
+    """
+    on = use_tp and mesh.shape["tp"] > 1
+
+    def place(row, path: str, t: torch.Tensor):
+        axis = _tp_axis(path) if on else None
+        if axis is None:
+            return t.to(row[0])
+        if t.shape[axis] % len(row):
+            raise ValueError(
+                f"{path}: axis {axis} of {tuple(t.shape)} does not divide "
+                f"over tp={len(row)}"
             )
-        out.append(by_device[device])
+        return Split(tuple(
+            part.to(d).contiguous()
+            for part, d in zip(t.chunk(len(row), axis), row)
+        ), axis)
+
+    trees: typing.Dict[typing.Tuple[torch.device, ...], Params] = {}
+    out = []
+    for _, row in mesh.local_rows():
+        key = row if on else row[:1]
+        if key not in trees:
+            trees[key] = _map_tree(
+                lambda path, t, key=key: place(key, path, t), params
+            )
+        out.append(trees[key])
     return out
 
 

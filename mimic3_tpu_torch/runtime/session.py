@@ -34,7 +34,13 @@ pass runs per shard of rows, one host sync reads every shard's totals,
 and each shard decodes its rows at the one frame bucket on its own
 device (the stage kernel included).  Rows come back in order; on a mesh
 over several processes every rank computes its own shards and receives
-every row.  Streaming runs on replica 0.
+every row.  Streaming runs on replica 0.  With ``use_tp`` on a mesh whose
+tp axis is larger than 1, each dp row splits the tp-ruled weights over
+its tp devices (``parallel/mesh.py::shard_params``): the encoder FFNs
+Megatron style, the decoder's upsamplers by output channel, the convs
+routed through ``parallel/tensor.py`` and the rest on the row's first
+device.  As in the reference, the fused stage kernel is off under any
+``tp > 1`` mesh.
 
 Not ported yet: CUDA graphs per warmed signature.
 """
@@ -660,11 +666,17 @@ class _ContinuationDriver:
 
 @dataclass(frozen=True)
 class _Replica:
-    """The params and stage-kernel weights on one device."""
+    """One dp row's params and stage-kernel weights: on its first
+    device, and its tp devices' parts of the split leaves."""
 
-    device: torch.device
+    devices: typing.Tuple[torch.device, ...]
     params: typing.Dict[str, typing.Any]
     stage_weights: typing.Dict[int, typing.Any]
+
+    @property
+    def device(self) -> torch.device:
+        """Where the row's inputs, activations and outputs live."""
+        return self.devices[0]
 
 
 @dataclass
@@ -680,8 +692,8 @@ class _ShardCall:
 
 class TorchVitsSession:
     """A voice's synthesis engine on one torch device, or data parallel
-    over the dp axis of ``mesh`` (a ``tp > 1`` mesh raises
-    ``NotImplementedError``)."""
+    over the dp axis of ``mesh``, each dp row split over its tp devices
+    with ``use_tp`` (else held on the row's first device)."""
 
     _SHARED: typing.Dict[str, "TorchVitsSession"] = {}
     _SHARED_LOCK = threading.Lock()
@@ -696,22 +708,23 @@ class TorchVitsSession:
         device: typing.Union[str, torch.device, None] = None,
         allow_bucket_growth: bool = False,
         mesh: typing.Optional[Mesh] = None,
+        use_tp: bool = False,
     ):
         self.config = config
+        tp = 1 if mesh is None else mesh.shape["tp"]
         if mesh is not None:
-            if mesh.shape["tp"] > 1:
-                raise NotImplementedError(
-                    "tensor-parallel serving (tp > 1) is not ported: the "
-                    "port's decoder runs data parallel only; see ROADMAP.md"
-                )
             if device is not None:
                 raise ValueError("a mesh names its devices; pass no device")
-            shards = mesh.local_shards()
-            for _, d in shards:
-                resolve_device(d)
-            self.device = shards[0][1]
+            # each local dp row's devices: the tp row with use_tp, else
+            # its first device alone
+            rows = [row if use_tp else row[:1]
+                    for _, row in mesh.local_rows()]
+            for row in rows:
+                for d in row:
+                    resolve_device(d)
         else:
-            self.device = resolve_device(device)
+            rows = [(resolve_device(device),)]
+        self.device = rows[0][0]
         self.mesh = mesh
         self.deterministic = deterministic
         decoder_dtype = (
@@ -726,6 +739,11 @@ class TorchVitsSession:
                 if self.device.type == "cuda"
                 else 0
             )
+        if tp > 1:
+            # the reference's capability gate: the fused stage takes whole
+            # weights, so under any tp > 1 mesh it is off, even when the
+            # config asks for it (and with use_tp off, as there)
+            stage_max = 0
         self.model = VitsModel(
             config.model,
             decoder_dtype=decoder_dtype,
@@ -735,17 +753,17 @@ class TorchVitsSession:
         # the fused decoder stages' weights laid out for the kernel once
         # per device; rows on one device share them
         if mesh is None:
-            devices = [self.device]
             replica_params = [to_torch_params(dict(params), self.device)]
         else:
-            devices = [d for _, d in shards]
-            replica_params = shard_params(mesh, to_torch_params(dict(params)))
+            replica_params = shard_params(
+                mesh, to_torch_params(dict(params)), use_tp=use_tp
+            )
         packed: typing.Dict[int, _Replica] = {}
         self._replicas: typing.List[_Replica] = []
-        for device, p in zip(devices, replica_params):
+        for row, p in zip(rows, replica_params):
             if id(p) not in packed:
                 packed[id(p)] = _Replica(
-                    device, p, self.model.pack_decoder(p["dec"], device)
+                    row, p, self.model.pack_decoder(p["dec"], row[0])
                 )
             self._replicas.append(packed[id(p)])
         # replica 0 serves streaming and the continuation driver
@@ -1084,7 +1102,7 @@ class TorchVitsSession:
             spec_done: typing.List[torch.cuda.Event] = []
             if spec_bucket is not None:
                 spec_result = decode(spec_bucket)
-                for d in {sh.replica.device for sh in shards}:
+                for d in {d for sh in shards for d in sh.replica.devices}:
                     if d.type == "cuda":
                         spec_done.append(torch.cuda.Event())
                         spec_done[-1].record(torch.cuda.current_stream(d))
@@ -1608,7 +1626,7 @@ class TorchVitsSession:
                                 stage_weights=self.stage_weights,
                             )
                             warmed.add(hit_key("chunk", b, t, w))
-        for d in {rep.device for rep in self._replicas}:
+        for d in {d for rep in self._replicas for d in rep.devices}:
             if d.type == "cuda":
                 torch.cuda.synchronize(d)  # the work is done, not queued
         elapsed = time.perf_counter() - start

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 from mimic3_tpu.parallel import make_mesh as j_make_mesh
 from mimic3_tpu.parallel import param_sharding as j_param_sharding
 from mimic3_tpu_torch.parallel import (
+    Split,
     batch_sharding,
     initialize_distributed,
     make_global_mesh,
@@ -171,9 +172,18 @@ def test_batch_and_param_layouts():
     assert all(r is replicas[0] for r in replicas)
     torch.testing.assert_close(replicas[0]["dec"]["conv_pre"]["weight"],
                                params["dec"]["conv_pre"]["weight"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        shard_params(make_mesh(n_devices=4, tp=2, platform="cpu"), params,
-                     use_tp=True)
+    # a tp mesh is accepted: each dp row splits the ruled leaves over its
+    # tp devices (rows on the same devices share one tree)
+    tp_rows = shard_params(make_mesh(n_devices=4, tp=2, platform="cpu"),
+                           params, use_tp=True)
+    assert len(tp_rows) == 2 and tp_rows[0] is tp_rows[1]
+    ups = tp_rows[0]["dec"]["ups"]["0"]["weight"]
+    assert isinstance(ups, Split) and ups.axis == 1
+    assert [p.shape for p in ups.parts] == [(16, 4, 4), (16, 4, 4)]
+    torch.testing.assert_close(torch.cat(ups.parts, dim=1),
+                               params["dec"]["ups"]["0"]["weight"])
+    torch.testing.assert_close(tp_rows[0]["dec"]["conv_pre"]["weight"],
+                               params["dec"]["conv_pre"]["weight"])
 
 
 def test_single_process_is_noop(no_launcher):

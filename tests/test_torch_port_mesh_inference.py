@@ -8,8 +8,9 @@ runs the duration pass and the decode per shard of rows, and must give
 the single-device audio within ``atol=2e-5``, with noise and speakers
 too; partial and oversized batches; batch buckets that divide dp;
 streaming on replica 0; the (plain, on the CPU) fused stage run once per
-shard; the batching scheduler packing multiples of dp; ``tp > 1`` and a
-dp above the visible cards refused.  One test
+shard; the batching scheduler packing multiples of dp; a tp mesh placing
+its parts (and one that does not divide a ruled axis refused); a dp above
+the visible cards refused.  One test
 holds the port's dp=4 session to the JAX package's ``TpuVoice(dp=4)`` at
 ``corr >= 0.999`` with equal lengths (the north-star bar).
 """
@@ -25,7 +26,7 @@ from mimic3_tpu.runtime.testvoice import create_test_voice
 from mimic3_tpu.runtime.voice import TpuVoice
 from mimic3_tpu_torch.config import TrainingConfig as TTrainingConfig
 from mimic3_tpu_torch.ops import stage as stage_mod
-from mimic3_tpu_torch.parallel import make_mesh
+from mimic3_tpu_torch.parallel import Split, make_mesh
 from mimic3_tpu_torch.runtime.convert import load_pytree_npz
 from mimic3_tpu_torch.runtime.session import TorchVitsSession
 from mimic3_tpu_torch.runtime.voice import load_from_directory
@@ -176,11 +177,23 @@ def test_plain_stage_runs_once_per_shard(voice_dir, monkeypatch):
 
 
 def test_tp_mesh_raises(voice_dir):
+    """A tp mesh is accepted and places the parts (use_tp: each dp row
+    splits the ruled leaves over its tp devices); what still raises is a
+    tp that does not divide a ruled axis, never replicated instead."""
     tc = TTrainingConfig.load_path(voice_dir / "config.json")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    params = load_pytree_npz(voice_dir / "generator.npz")
+    session = TorchVitsSession(
+        tc, params, mesh=make_mesh(n_devices=8, tp=2, platform="cpu"),
+        use_tp=True,
+    )
+    assert session.dp == 4
+    assert [len(r.devices) for r in session._replicas] == [2] * 4
+    ups = session.params["dec"]["ups"]["0"]["weight"]
+    assert isinstance(ups, Split) and len(ups.parts) == 2
+    with pytest.raises(ValueError, match="does not divide"):
         TorchVitsSession(
-            tc, load_pytree_npz(voice_dir / "generator.npz"),
-            mesh=make_mesh(n_devices=8, tp=2, platform="cpu"),
+            tc, params, mesh=make_mesh(n_devices=3, tp=3, platform="cpu"),
+            use_tp=True,
         )
 
 
