@@ -42,7 +42,17 @@ just before it and read just after:
   2 on repeats of the one card (or the visible cards in rows of two)
   against one device, f32 and bf16, a stream's first chunk, the gathers
   and reductions per call, no stage launch (the reference turns the
-  kernel off under tp), and the time per call.
+  kernel off under tp), and the time per call;
+- tensor-parallel training: the GAN train step on a dp 1 x tp 2 mesh in
+  one process (repeats of the one card, or two cards) from ``[train]``'s
+  weights and data, against the same steps on one device: losses,
+  parameters, collectives per step, step time and peak memory;
+- tp rows across processes: this script's rank worker
+  (``--tp-mp-worker``, not for use by hand) under
+  ``torch.distributed.run`` over ``make_global_mesh(tp=2)``, two gloo
+  ranks on one card or dp 2 x tp 2 over NCCL on four: serving against one
+  device, the time in the row's collectives, and train steps against one
+  process with the ranks' parameters compared.
 
     python3 chip_smoke.py
 
@@ -56,6 +66,7 @@ network, no JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import gc
 import io
 import json
 import logging
@@ -1239,16 +1250,38 @@ def write_train_dataset(root: Path, n: int = 32, seed: int = 0):
 class StepClock(logging.Handler):
     """Host time of each ``step N`` line the trainer logs (with
     ``--log-every 1`` each follows a fetch of the step's losses, so the
-    card has finished the step)."""
+    card has finished the step), and, while :meth:`gc_callback` is in
+    ``gc.callbacks``, the garbage collector's passes: the step is
+    host-bound, and a full pass over a large process's objects takes as
+    long as part of a step."""
 
     def __init__(self):
         super().__init__()
-        self.times, self.metrics = [], []
+        self.times, self.metrics, self.collections = [], [], []
+        self._gc_start = None
 
     def emit(self, record):
         if record.getMessage().startswith("step "):
             self.times.append(time.perf_counter())
             self.metrics.append(record.args[1])
+
+    def gc_callback(self, phase, info):
+        now = time.perf_counter()
+        if phase == "start":
+            self._gc_start = now
+        elif self._gc_start is not None:
+            self.collections.append((self._gc_start, now, info["generation"]))
+
+    def collections_after_first_step(self) -> str:
+        """The collector's passes between the first and the last step
+        line, by generation: passes and ms."""
+        by_gen = {g: [0, 0.0] for g in range(3)}
+        for start, end, gen in self.collections:
+            if self.times[0] <= start <= self.times[-1]:
+                by_gen[gen][0] += 1
+                by_gen[gen][1] += (end - start) * 1000
+        return ", ".join(f"gen {g}: {n} passes, {ms:.1f} ms"
+                         for g, (n, ms) in by_gen.items())
 
 
 def busy_share(trace: Path) -> tuple:
@@ -1305,6 +1338,7 @@ def train_path(root: Path, card_line: str):
     logger = logging.getLogger("mimic3_tpu_torch.train_cli")
     logger.setLevel(logging.INFO)
     logger.addHandler(clock)
+    gc.callbacks.append(clock.gc_callback)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
@@ -1315,6 +1349,7 @@ def train_path(root: Path, card_line: str):
         ])
     finally:
         logger.removeHandler(clock)
+        gc.callbacks.remove(clock.gc_callback)
     total_s = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if rc != 0 or len(clock.times) != 6:
@@ -1334,6 +1369,28 @@ def train_path(root: Path, card_line: str):
             raise AssertionError(f"a loss is not finite: {m}")
     say("train", f"losses, step 1: {clock.metrics[0]}; step 6: "
         f"{clock.metrics[-1]}")
+    say("train", f"garbage collector during steps 2-6: "
+        f"{clock.collections_after_first_step()} ({len(gc.get_objects())} "
+        f"objects tracked in this process)")
+    # the same trainer and steps in a fresh process, right after: what
+    # this process's state after the earlier phases costs the host-bound
+    # step (the trainer alone runs as the fresh process does)
+    fresh = subprocess.run(
+        [sys.executable, str(REPO / "mimic3_tpu_torch" / "scripts"
+                             / "time_train_step.py")],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)),
+        capture_output=True, text=True, timeout=300,
+    )
+    fresh_line = [ln for ln in fresh.stdout.splitlines()
+                  if ln.startswith("{")]
+    if fresh.returncode != 0 or not fresh_line:
+        raise AssertionError("the fresh-process trainer failed:\n"
+                             + (fresh.stdout + fresh.stderr)[-2000:])
+    fresh_run = json.loads(fresh_line[-1])
+    say("train", f"the same trainer in a fresh process, right after: steps "
+        f"2-6 median {fresh_run['median_ms']:.1f} ms "
+        f"({fresh_run['step_ms']}), peak memory {fresh_run['peak_gb']:.2f} "
+        f"GB; this process: median {med:.1f} ms")
 
     # one more step from the final checkpoint, timed part by part, then
     # one profiled
@@ -1910,6 +1967,412 @@ def tp_path(root, voice_dir, card_line):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# tensor-parallel training, and tp rows across processes
+# ---------------------------------------------------------------------------
+
+TP_TRAIN_STEPS = 3
+TP_MP_DET = dict(noise_scale=0.0, noise_w=0.0, seed=3)
+
+
+def train_inputs(root: Path):
+    """The ``[train]`` phase's starting point for a run of its own: the
+    full-width voice made again from seed 1234 (``[train]`` exported over
+    its generator.npz), its config, the initial trees as
+    ``mimic3-torch-train`` builds them (JAX layout), and the utterances of
+    ``root/train_data``.  Returns (voice dir, config, params, disc,
+    utterances)."""
+    from mimic3_tpu_torch import train_cli
+    from mimic3_tpu_torch.config import TrainingConfig
+    from mimic3_tpu_torch.models.vits import train as T
+    from mimic3_tpu_torch.runtime.convert import load_pytree_npz
+    from mimic3_tpu_torch.runtime.dataset import load_metadata, make_frontend
+    from mimic3_tpu_torch.runtime.testvoice import create_test_voice
+
+    voice_dir = root / "en_US" / "tp_train_low"
+    if not voice_dir.exists():
+        create_test_voice(voice_dir, seed=1234)
+    config = TrainingConfig.load_path(voice_dir / "config.json")
+    params, disc = T.init_training_params(config.seed, config)
+    params = train_cli.merge_pretrained(
+        params, load_pytree_npz(voice_dir / "generator.npz"))
+    data = root / "train_data"
+    utts = load_metadata(data / "metadata.csv", data / "wavs",
+                         make_frontend(voice_dir))
+    return voice_dir, config, params, disc, utts
+
+
+def run_steps(state, config, utts, device, local=None):
+    """``TP_TRAIN_STEPS`` steps of ``state`` as ``mimic3-torch-train``
+    takes them (the seeded batch stream of ``TRAIN_BATCH`` rows, this
+    process's ``local`` (start, size) of each, each step's generator
+    seeded from (seed, step)).  Returns (each step's losses, each step's
+    host ms, ending in a fetch of its losses)."""
+    from mimic3_tpu_torch.models.vits import train as T
+    from mimic3_tpu_torch.models.vits.model import mix_seed
+    from mimic3_tpu_torch.runtime.dataset import batches
+
+    step = T.make_train_step(config, max(1, len(utts) // TRAIN_BATCH))
+    data = batches(utts, config, TRAIN_BATCH, seed=config.seed)
+    start, size = local or (0, TRAIN_BATCH)
+    gen = torch.Generator(device)
+    losses, times = [], []
+    for i in range(TP_TRAIN_STEPS):
+        batch = next(data)
+        batch = T.TrainBatch(*(
+            None if t is None else t[start:start + size].to(device)
+            for t in (batch.phoneme_ids, batch.text_lengths, batch.audio,
+                      batch.spec_lengths, batch.speaker_ids)))
+        gen.manual_seed(mix_seed(config.seed + 1, i))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, generator=gen)
+        losses.append({k: float(v) for k, v in metrics.items()})
+        times.append((time.perf_counter() - t0) * 1000)
+    return losses, times
+
+
+def loss_errors(got, want) -> typing.List[float]:
+    """Each step's largest relative difference of the losses."""
+    return [max(abs(g[k] - w[k]) / abs(w[k]) for k in w)
+            for g, w in zip(got, want)]
+
+
+def tp_train_path(root: Path, card_line: str):
+    """The GAN train step on a dp 1 x tp 2 mesh in one process (phase 18):
+    ``[cuda:0]x2``, or ``cuda:0,1`` with two cards, from ``[train]``'s
+    weights and data, ``TP_TRAIN_STEPS`` steps at batch ``TRAIN_BATCH``
+    against the same steps on one device: losses within ``DP_STEP1_RTOL``
+    (step 1) and ``DP_LATER_RTOL`` (later), the gathered parameters within
+    2 lr per step, the reductions and gathers per step, step time and
+    peak memory.  Returns (kernel launches, the one-device run's
+    losses)."""
+    from mimic3_tpu_torch.models.vits import train as T
+    from mimic3_tpu_torch.ops import resblock, stage
+    from mimic3_tpu_torch.parallel import gather_params, make_mesh
+    from mimic3_tpu_torch.parallel import tensor as tpt
+    from mimic3_tpu_torch.runtime.convert import to_torch_train_params
+
+    t_phase = time.perf_counter()
+    _, config, params, disc, utts = train_inputs(root)
+    cards = torch.cuda.device_count()
+    devices = ["cuda:0", "cuda:1"] if cards > 1 else ["cuda:0"] * 2
+    dev = torch.device("cuda:0")
+    stage.launches = resblock.launches = 0
+
+    def peak_gb():
+        return [torch.cuda.max_memory_allocated(d) / 1e9
+                for d in sorted(set(devices))]
+
+    def reset_peak():
+        torch.cuda.synchronize()
+        for d in sorted(set(devices)):
+            torch.cuda.reset_peak_memory_stats(d)
+
+    reset_peak()
+    one = T.init_train_state(to_torch_train_params(params, dev),
+                             to_torch_train_params(disc, dev), config)
+    one_losses, one_ms = run_steps(one, config, utts, dev)
+    one_peak = peak_gb()
+    def named(st, params):
+        return {f"{k}.{n}": t.detach().cpu() for k, tree in (
+            ("g", params), ("d", st.disc_params))
+            for n, t in T.tree_leaves(tree)}
+
+    want = named(one, one.params)
+    del one
+    torch.cuda.empty_cache()
+
+    reset_peak()
+    mesh = make_mesh(devices=devices, tp=2)
+    state = T.init_train_state(to_torch_train_params(params),
+                               to_torch_train_params(disc), config,
+                               mesh=mesh, use_tp=True)
+    tpt.gathers = tpt.reductions = 0
+    tp_losses, tp_ms = run_steps(state, config, utts, dev)
+    per_step = (tpt.reductions / TP_TRAIN_STEPS,
+                tpt.gathers / TP_TRAIN_STEPS)
+    tp_peak = peak_gb()
+    got = named(state, gather_params(state.params))
+    hp = T.VitsModel(config.model).hp
+    expect = (hp.n_layers, len(hp.upsample_rates))
+    rel = loss_errors(tp_losses, one_losses)
+    drift = max(float((got[n] - w).abs().max()) for n, w in want.items())
+    bound = 2 * config.learning_rate * TP_TRAIN_STEPS
+    n_kernels = stage.launches + resblock.launches
+    say("tp_train", f"dp1xtp2 over {devices}, {TP_TRAIN_STEPS} steps at "
+        f"batch {TRAIN_BATCH} x {config.segment_size} samples against one "
+        f"device: losses max rel diff per step "
+        f"{', '.join(f'{r:.3e}' for r in rel)} (bars: step 1 "
+        f"{DP_STEP1_RTOL:g}, later {DP_LATER_RTOL:g}); gathered parameters "
+        f"max abs diff {drift:.3e} (bar 2 lr per step: {bound:g})")
+    say("tp_train", f"per step {per_step[0]:g} reductions, {per_step[1]:g} "
+        f"gathers (expected {expect[0]}, {expect[1]}); step ms (steps "
+        f"1-{TP_TRAIN_STEPS}): tp {[round(t, 1) for t in tp_ms]}, one "
+        f"device {[round(t, 1) for t in one_ms]}; peak memory GB: tp "
+        f"{[round(g, 2) for g in tp_peak]}, one device "
+        f"{[round(g, 2) for g in one_peak]}; kernel launches {n_kernels} "
+        f"({card_line})")
+    say("tp_train", f"phase wall {time.perf_counter() - t_phase:.1f} s")
+    if not (rel[0] <= DP_STEP1_RTOL
+            and all(r <= DP_LATER_RTOL for r in rel[1:])):
+        raise AssertionError("the tp train step's losses disagree with one "
+                             "device")
+    if not drift <= bound:
+        raise AssertionError("the tp-trained parameters stray from one "
+                             "device's")
+    if per_step != expect:
+        raise AssertionError(f"collectives per tp train step {per_step}")
+    if n_kernels:
+        raise AssertionError("the tp train step launched a kernel")
+    return n_kernels, one_losses
+
+
+def tp_mp_path(root: Path, voice_dir: Path, card_line: str, one_losses):
+    """tp rows across processes (phase 19): this script's
+    :func:`tp_mp_worker` in as many ranks under ``torch.distributed.run``
+    over ``make_global_mesh(tp=2)``: on one card 2 gloo ranks on cuda:0
+    (dp 1 x tp 2; NCCL refuses two ranks on one device), on four cards dp
+    2 x tp 2 over NCCL on cuda:0..3.  Serving: every rank gets every row
+    within 2e-5 of the one-device kernel-off session with equal durations;
+    training: ``TP_TRAIN_STEPS`` steps whose losses are held to the
+    one-process run's at the ``DP_*`` bars, and every parameter leaf or
+    part bitwise equal on the ranks that hold it.  Returns the ranks'
+    kernel launches."""
+    from mimic3_tpu_torch.config import TrainingConfig
+    from mimic3_tpu_torch.parallel.distributed import backend_for
+    from mimic3_tpu_torch.runtime.convert import load_pytree_npz
+    from mimic3_tpu_torch.runtime.session import TorchVitsSession
+    from mimic3_tpu_torch.runtime.voice import load_from_directory
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    nproc = 4 if cards >= 4 else 2
+    backend = backend_for(torch.device("cuda", 0), local_world=nproc)
+    work = root / "tp_mp"
+    work.mkdir()
+    serve_dir = voice_copy(voice_dir, root / "en_US" / "tp_mp_low",
+                           speculative_decode=False,
+                           pallas_stage_max_channels=0)
+    voice = load_from_directory(serve_dir, share_sessions=False,
+                                deterministic=True)
+    seqs = [phoneme_ids(voice, t) for t in DP_TEXTS]
+    (work / "in.json").write_text(json.dumps(dict(
+        serve_dir=str(serve_dir), seqs=seqs, root=str(root))))
+    config = TrainingConfig.load_path(serve_dir / "config.json")
+    single = TorchVitsSession(config,
+                              load_pytree_npz(serve_dir / "generator.npz"),
+                              deterministic=True, device="cuda:0")
+    want = single.synthesize_ids_batch(seqs, **TP_MP_DET)
+    want_durations = replica_durations(single, seqs)
+    hp = single.model.hp
+    logs = work / "logs"
+    del single, voice
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rc, text = run_group([
+        sys.executable, "-m", "torch.distributed.run", "--standalone",
+        "--nproc_per_node", str(nproc), "--redirects", "3", "--log-dir",
+        str(logs), str(REPO / "chip_smoke.py"), "--tp-mp-worker", str(work),
+    ], timeout=600)
+    wall = time.perf_counter() - t0
+    ranks = sorted(work.glob("out_*.json"))
+    if rc != 0 or len(ranks) != nproc:
+        raise AssertionError(f"{nproc}-rank tp run failed (rc {rc}):\n"
+                             + text[-3000:] + "".join(
+                                 p.read_text()[-3000:]
+                                 for p in logs.rglob("stderr.log")))
+    outs = [json.loads((work / f"out_{r}.json").read_text())
+            for r in range(nproc)]
+    errs = []
+    for r in range(nproc):
+        got = np.load(work / f"infer_{r}.npz")
+        audio = [got[f"arr_{i}"] for i in range(len(seqs))]
+        errs.append(max(float(np.abs(a - b).max()) if a.shape == b.shape
+                        else np.inf for a, b in zip(audio, want)))
+        if not np.array_equal(got["durations"], want_durations):
+            errs[-1] = np.inf
+    expect = [2 * hp.n_layers, len(hp.upsample_rates)]
+    o = outs[0]
+    say("tp_mp", f"{nproc} ranks, backend {o['backend']}, mesh "
+        f"{o['shape']} over {[x['device'] for x in outs]}, run wall "
+        f"{wall:.1f} s (launch, init, serving and training included)")
+    say("tp_mp", f"serving (f32, deterministic) against one device, kernel "
+        f"off: max abs err per rank {', '.join(f'{e:.3e}' for e in errs)} "
+        f"(bar 2e-5, durations equal); per call "
+        f"{[x['collectives'] for x in outs]} reductions, gathers (expected "
+        f"{expect} per rank); wall ms per call at B=1 / 4: "
+        f"{[x['wall_ms'] for x in outs]}; in collectives: "
+        f"{[x['collective_ms'] for x in outs]} ms per call at B=4 "
+        f"({card_line})")
+    rel = loss_errors(o["losses"], one_losses)
+    say("tp_mp", f"training, {TP_TRAIN_STEPS} steps at global batch "
+        f"{TRAIN_BATCH}: losses against one process, max rel diff per "
+        f"step {', '.join(f'{r:.3e}' for r in rel)} (bars: step 1 "
+        f"{DP_STEP1_RTOL:g}, later {DP_LATER_RTOL:g}); step ms per rank "
+        f"{[[round(t, 1) for t in x['step_ms']] for x in outs]}")
+    holders: typing.Dict[str, typing.Set[str]] = {}
+    for x in outs:
+        for name, digest in x["digests"].items():
+            holders.setdefault(name, set()).add(digest)
+    split = [n for n in holders if n.endswith("]")]
+    differ = [n for n, d in holders.items() if len(d) != 1]
+    say("tp_mp", f"parameters after {TP_TRAIN_STEPS} steps: {len(holders)} "
+        f"leaves and parts ({len(split)} parts), {len(differ)} differing "
+        f"between the ranks that hold them; kernel launches "
+        f"{sum(x['launches'] for x in outs)}")
+    say("tp_mp", f"phase wall {time.perf_counter() - t_phase:.1f} s")
+    if o["backend"] != backend or any(x["backend"] != backend for x in outs):
+        raise AssertionError(f"expected backend {backend}")
+    if not all(e <= 2e-5 for e in errs):
+        raise AssertionError("tp across processes: audio disagrees with one "
+                             "device")
+    if any(x["collectives"] != expect for x in outs):
+        raise AssertionError("tp across processes: collectives per call")
+    if any(x["losses"] != o["losses"] for x in outs):
+        raise AssertionError("the ranks logged different losses")
+    if not (rel[0] <= DP_STEP1_RTOL
+            and all(r <= DP_LATER_RTOL for r in rel[1:])):
+        raise AssertionError("tp across processes: losses disagree with one "
+                             "process")
+    if differ or not split:
+        raise AssertionError(f"ranks differ on {differ[:5]}")
+    n = sum(x["launches"] for x in outs)
+    if n:
+        raise AssertionError("the tp ranks launched a kernel")
+    return n
+
+
+def replica_durations(session, seqs) -> np.ndarray:
+    """Replica 0's integer durations for ``seqs`` padded as the session
+    pads them (every rank of a tp row that spans processes calls this)."""
+    ids, lengths, sid = session._pad(seqs, None, "duration")
+    rep = session._replicas[0]
+    durations, _ = session.model.infer_durations(
+        rep.params, session._put(ids, rep.device),
+        session._put(lengths, rep.device), 3, 1.0, 0.0,
+        sid=session._sid(sid, rep.device))
+    return durations.cpu().numpy()
+
+
+def tp_mp_worker(work: Path) -> int:
+    """One rank of :func:`tp_mp_path`, under ``torch.distributed.run``:
+    serves the inputs of ``work/in.json`` over ``make_global_mesh(tp=2)``
+    (the wall per call, and the time spent in the row's collectives,
+    synchronised one by one), trains ``TP_TRAIN_STEPS`` steps on its dp
+    row's rows, and writes ``out_RANK.json`` and ``infer_RANK.npz``."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from mimic3_tpu_torch.config import TrainingConfig
+    from mimic3_tpu_torch.models.vits import train as T
+    from mimic3_tpu_torch.ops import resblock, stage
+    from mimic3_tpu_torch.parallel import (
+        initialize_distributed,
+        make_global_mesh,
+        process_local_batch_slice,
+    )
+    from mimic3_tpu_torch.parallel import tensor as tpt
+    from mimic3_tpu_torch.parallel.distributed import local_device
+    from mimic3_tpu_torch.runtime.convert import (
+        load_pytree_npz,
+        to_torch_train_params,
+    )
+    from mimic3_tpu_torch.runtime.session import TorchVitsSession
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inp = json.loads((work / "in.json").read_text())
+    initialize_distributed()
+    rank = dist.get_rank()
+    device = local_device()
+    mesh = make_global_mesh(tp=2)
+    stage.launches = resblock.launches = 0
+    out = dict(backend=dist.get_backend(), shape=mesh.shape,
+               device=str(device))
+
+    serve_dir = Path(inp["serve_dir"])
+    seqs = inp["seqs"]
+    session = TorchVitsSession(
+        TrainingConfig.load_path(serve_dir / "config.json"),
+        load_pytree_npz(serve_dir / "generator.npz"), deterministic=True,
+        mesh=mesh, use_tp=True)
+    tpt.gathers = tpt.reductions = 0
+    audio = session.synthesize_ids_batch(seqs, **TP_MP_DET)
+    out["collectives"] = [tpt.reductions, tpt.gathers]
+    np.savez(work / f"infer_{rank}.npz", *audio,
+             durations=replica_durations(session, seqs))
+    out["wall_ms"] = [round(time_session(session, seqs[:rows], 5)[0] * 1000,
+                            1) for rows in (1, 4)]
+    # the time of each of the row's collectives in one call at B=4
+    spent = []
+    real = tpt._all_reduce, tpt._all_gather
+
+    def timed(fn):
+        def run(*args):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            result = fn(*args)
+            torch.cuda.synchronize(device)
+            spent.append(time.perf_counter() - t0)
+            return result
+        return run
+
+    tpt._all_reduce, tpt._all_gather = map(timed, real)
+    try:
+        session.synthesize_ids_batch(seqs[:4])
+    finally:
+        tpt._all_reduce, tpt._all_gather = real
+    out["collective_ms"] = [round(sum(spent) * 1000, 2), len(spent)]
+
+    smoke_root = Path(inp["root"])
+    _, config, params, disc, utts = train_inputs(smoke_root)
+    state = T.init_train_state(to_torch_train_params(params),
+                               to_torch_train_params(disc), config,
+                               mesh=mesh, use_tp=True)
+    out["losses"], out["step_ms"] = run_steps(
+        state, config, utts, device,
+        process_local_batch_slice(TRAIN_BATCH, mesh))
+    out["digests"] = {
+        f"{tree}.{name}": hashlib.sha256(
+            t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+        for tree, leaves in (("g", state.g_leaves), ("d", state.d_leaves))
+        for name, t in leaves
+    }
+    out["launches"] = stage.launches + resblock.launches
+    (work / f"out_{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def host_probe(after: str, n: int = 4000) -> None:
+    """The host's state after a phase: wall microseconds per tiny CUDA op
+    (an add to a 1-element tensor, queued back to back), the Python
+    threads alive, the objects the garbage collector tracks and one full
+    collection's ms, and whether an autograd profiler is on.  The
+    synthesis and train paths are host-bound (PERF.md), so what the
+    earlier phases leave in the process shows in later phases' times."""
+    x = torch.zeros(1, device="cuda")
+    for _ in range(100):
+        x = x + 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        x = x + 1
+    torch.cuda.synchronize()
+    per_op = (time.perf_counter() - t0) / n * 1e6
+    t0 = time.perf_counter()
+    gc.collect()
+    gc_ms = (time.perf_counter() - t0) * 1000
+    say("host", f"after {after}: {per_op:.2f} us per op, "
+        f"{threading.active_count()} threads "
+        f"({sorted({t.name.split('-')[0] for t in threading.enumerate()})}), "
+        f"{len(gc.get_objects())} objects tracked, full collection "
+        f"{gc_ms:.1f} ms, autograd profiler on: "
+        f"{torch.autograd.profiler._is_profiler_enabled}")
+
+
 def main() -> int:
     # -- 1. environment ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2053,6 +2516,7 @@ def main() -> int:
         say("voice", f"full-width *_low test voice (random weights, seed "
             f"1234) in {time.perf_counter() - t0:.1f} s")
         launches = {}
+        host_probe("start")
         launches["main"], det_launches = main_path(root, voice_dir,
                                                    plain_dir, card_line)
         res_launches, _ = profile_path()
@@ -2061,10 +2525,14 @@ def main() -> int:
         launches["onnx"] = onnx_path(root)
         launches["mbistft"] = mbistft_path(root, voice_dir, card_line)
         launches["speculate"] = speculate_path(root, voice_dir, card_line)
+        host_probe("speculate, before train")
         launches["train"], launches["train_serve"], train_steps = (
             train_path(root, card_line))
         launches["dp"] = dp_path(root, voice_dir, card_line, train_steps)
         launches["tp"] = tp_path(root, voice_dir, card_line)
+        launches["tp_train"], one_losses = tp_train_path(root, card_line)
+        launches["tp_mp"] = tp_mp_path(root, voice_dir, card_line,
+                                       one_losses)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2117,6 +2585,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--tp-mp-worker"]:
+            sys.exit(tp_mp_worker(Path(sys.argv[2])))
         sys.exit(main())
     except Exception:  # noqa: BLE001 — report and fail the run
         traceback.print_exc()

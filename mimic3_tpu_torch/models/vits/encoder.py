@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from ...parallel import tensor as tp
-from .layers import Params, conv1d, embedding, layer_norm
+from .layers import Params, conv1d, conv_weight, embedding, layer_norm
 
 WINDOW_SIZE = 4
 
@@ -94,10 +94,12 @@ def ffn(
     """
     pad = (kernel_size - 1) // 2
     if tp.is_split(p["conv_1"]):
-        h = tp.conv(x * x_mask, p["conv_1"], padding=pad, keep_split=True)
+        h = tp.conv(x * x_mask, conv_weight(p["conv_1"]),
+                    p["conv_1"].get("bias"), padding=pad, keep_split=True)
         h = tp.Split(tuple(torch.relu(t) * x_mask.to(t.device)
-                           for t in h.parts), h.axis)
-        return tp.conv(h, p["conv_2"], padding=pad) * x_mask
+                           for t in h.parts), h.axis, h.row)
+        return tp.conv(h, conv_weight(p["conv_2"]), p["conv_2"].get("bias"),
+                       padding=pad) * x_mask
     y = torch.relu(conv1d(x * x_mask, p["conv_1"], padding=pad))
     y = conv1d(y * x_mask, p["conv_2"], padding=pad)
     return y * x_mask

@@ -32,21 +32,39 @@ Params = typing.Dict[str, typing.Any]
 LRELU_SLOPE = 0.1
 
 
-def conv_weight(p: Params, out_dim: int = 0) -> torch.Tensor:
+def conv_weight(
+    p: Params, out_dim: int = 0
+) -> typing.Union[torch.Tensor, tp.Split]:
     """Resolve a conv's weight, folding weight norm when present.
 
     weight-norm: ``w = g * v / ||v||`` with the norm over every axis but
     the output channel ``out_dim``: dim 0 of a conv's ``[Cout, Cin, K]``
     (and of a 2-D conv's ``[Cout, Cin, kh, kw]``), dim 1 of a transposed
     conv's ``[Cin, Cout, K]``.  ``g`` is ``[Cout, 1, 1]`` (``[1, Cout,
-    1]`` transposed), broadcast against ``v``.
+    1]`` transposed), broadcast against ``v``.  A pair split over a tp
+    row on the output channel folds part by part (each output channel's
+    norm lies in its part): a :class:`~...parallel.tensor.Split` of the
+    folded parts.
     """
     if "weight" in p:
         return p["weight"]
-    v = p["weight_v"]
+    v, g = p["weight_v"], p["weight_g"]
+    if isinstance(v, tp.Split):
+        if v.axis != out_dim or not isinstance(g, tp.Split):
+            raise ValueError(
+                "a weight-norm pair splits over a tp row only on its "
+                "output channel, v and g together"
+            )
+        return tp.Split(tuple(_fold(gj, vj, out_dim)
+                              for gj, vj in zip(g.parts, v.parts)),
+                        v.axis, v.row)
+    return _fold(g, v, out_dim)
+
+
+def _fold(g: torch.Tensor, v: torch.Tensor, out_dim: int) -> torch.Tensor:
     dims = tuple(d for d in range(v.dim()) if d != out_dim)
     norm = v.square().sum(dim=dims, keepdim=True).sqrt()
-    return p["weight_g"] * v / norm
+    return g * v / norm
 
 
 def conv1d(
@@ -63,8 +81,8 @@ def conv1d(
     if dtype is not None:
         x = x.to(dtype)
     if tp.is_split(p):
-        return tp.conv(x, p, stride=stride, padding=padding,
-                       dilation=dilation, groups=groups)
+        return tp.conv(x, conv_weight(p), p.get("bias"), stride=stride,
+                       padding=padding, dilation=dilation, groups=groups)
     bias = p.get("bias")
     return F.conv1d(
         x,
@@ -90,7 +108,8 @@ def conv_transpose1d(
     if dtype is not None:
         x = x.to(dtype)
     if tp.is_split(p):
-        return tp.conv(x, p, transpose=True, stride=stride, padding=padding)
+        return tp.conv(x, conv_weight(p, out_dim=1), p.get("bias"),
+                       transpose=True, stride=stride, padding=padding)
     bias = p.get("bias")
     return F.conv_transpose1d(
         x,

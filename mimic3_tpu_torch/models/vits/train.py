@@ -36,6 +36,22 @@ before clipping, so every rank steps identically; the logged losses are
 the global ones.  The mean losses (mel, adversarial, feature matching)
 average over equal shards, which the trainer guarantees by rounding the
 global batch to a multiple of the world size.
+
+On a mesh (``init_train_state(..., mesh=, use_tp=)``, the reference's
+step with its state placed by ``param_sharding`` under a ``dp x tp``
+mesh) the state trains one copy of the trees per local dp row (rows on
+the same devices share one) and the step runs each local row's rows:
+the dp sums (normalizers, gradients, metrics) add the local rows and go
+over the mesh's dp group, never the world, which would count each
+replicated gradient T times and add different parts of a split leaf.
+With ``use_tp`` the generator's ``_TP_RULES`` leaves are
+``parallel/tensor.py::Split``s whose parts are leaves of their own, each
+updated by Adam on its device; the discriminators and the optimizers'
+state stay whole on each row's first device.  Over a tp row that spans
+processes every rank of the row draws the same noise and runs the row's
+program on its device; the global norm adds the parts over the row, and
+the row's copies of the replicated gradients are averaged over it, which
+keeps those copies bitwise equal where a kernel sums in a varying order.
 """
 
 from __future__ import annotations
@@ -49,8 +65,9 @@ import torch
 
 from ...config import TrainingConfig
 from ...ops.stft import mel_spectrogram, spectrogram
-from ...parallel import all_reduce_sum
+from ...parallel import Mesh, all_reduce_sum, shard_params
 from ...parallel.mesh import shard_rows
+from ...parallel.tensor import Split
 from ...runtime.session import full_f32_convolutions
 from . import duration as dur
 from . import flow as flw
@@ -96,8 +113,9 @@ class TrainNoise:
 
 @dataclass(frozen=True)
 class Shard:
-    """This rank's part of a data-parallel step: the batch it gets is rows
-    ``[rank * b, (rank + 1) * b)`` of a global batch of ``world * b``."""
+    """One dp row's part of a data-parallel step (a rank's, without a
+    mesh): the batch it gets is rows ``[rank * b, (rank + 1) * b)`` of a
+    global batch of ``world * b``."""
 
     rank: int
     world: int
@@ -270,17 +288,20 @@ def shard_draws(
     n = batch * shard.world
     rows = shard.rows(n)
     device = spec_lengths.device
+    # drawn where the generator lives (a dp row may sit on another
+    # device), then moved
+    drawn = device if generator is None else generator.device
     posterior, duration = noise.posterior, noise.duration
     if posterior is None:
         posterior = torch.randn(
-            n, inter, t_spec, generator=generator, device=device
+            n, inter, t_spec, generator=generator, device=drawn
         )
     if duration is None and use_sdp:
         duration = torch.randn(n, 2, t_text, generator=generator,
-                               device=device)
+                               device=drawn)
     if noise.starts is None:
-        u = torch.rand(n, generator=generator, device=device)[rows]
-        starts = segment_starts(u, spec_lengths, segment_frames)
+        u = torch.rand(n, generator=generator, device=drawn)[rows]
+        starts = segment_starts(u.to(device), spec_lengths, segment_frames)
     else:
         starts = noise.starts[rows]
     return TrainNoise(
@@ -288,6 +309,16 @@ def shard_draws(
         duration=None if duration is None else duration[rows].to(device),
         starts=starts.to(device),
     )
+
+
+def batch_totals(batch: TrainBatch, hop: int) -> torch.Tensor:
+    """[valid phonemes, valid frames] of ``batch`` as float32, the sums of
+    its text and spectrogram masks (``samples // hop`` frames)."""
+    t_text, t_spec = batch.phoneme_ids.shape[1], batch.audio.shape[1] // hop
+    return torch.stack([
+        torch.clamp(batch.text_lengths, 0, t_text).sum(),
+        torch.clamp(batch.spec_lengths, 0, t_spec).sum(),
+    ]).float()
 
 
 def generator_forward(
@@ -300,15 +331,19 @@ def generator_forward(
     generator: typing.Optional[torch.Generator] = None,
     mark: typing.Callable[[str], None] = _no_mark,
     shard: typing.Optional[Shard] = None,
+    totals: typing.Optional[torch.Tensor] = None,
 ) -> typing.Dict[str, torch.Tensor]:
     """VITS training forward pass -> losses + fake/real audio segments.
 
     ``mark(name)`` is called where the part ``name`` of the work begins
     (``"mas"``, then ``"g_forward"`` again), for a caller timing them.
-    On a data-parallel ``shard``, ``batch`` is the rank's rows and
-    ``noise`` (if given) the global batch's draws; the duration and KL
-    losses are normalized by the global batch's valid phonemes and frames.
+    On a data-parallel ``shard``, ``batch`` is the shard's rows, ``noise``
+    (if given) the global batch's draws, and ``totals`` the global batch's
+    valid phonemes and frames (:func:`batch_totals` summed over the
+    shards), which normalize the duration and KL losses.
     """
+    if shard is not None and totals is None:
+        raise ValueError("a data-parallel shard needs the global totals")
     audio_cfg = config.audio
     hop = audio_cfg.hop_length
     segment_frames = config.segment_size // hop
@@ -336,10 +371,8 @@ def generator_forward(
         )
     noise = noise or TrainNoise()
     phonemes = frames = None
-    if shard is not None:
-        phonemes, frames = all_reduce_sum(
-            [torch.stack([torch.sum(x_mask), torch.sum(y_mask)])]
-        )[0]
+    if totals is not None:
+        phonemes, frames = totals.to(x_mask.device)
     z, m_q, logs_q = posterior_encoder(
         params["enc_q"], spec, y_mask, g=g, noise=noise.posterior,
         generator=generator,
@@ -419,15 +452,36 @@ def generator_forward(
 def tree_leaves(tree: Params, prefix: str = "") -> typing.List[
     typing.Tuple[str, torch.Tensor]
 ]:
-    """(dotted name, tensor) of every leaf, in the tree's order."""
+    """(dotted name, tensor) of every leaf, in the tree's order; each part
+    of a split leaf is a leaf of its own, ``name[j]`` for tp index ``j``
+    (over a row that spans processes, this rank's part alone)."""
     out = []
     for key, value in tree.items():
         path = f"{prefix}.{key}" if prefix else key
         if isinstance(value, dict):
             out.extend(tree_leaves(value, path))
+        elif isinstance(value, Split):
+            first = 0 if value.row is None else value.row.index
+            out.extend((f"{path}[{first + j}]", part)
+                       for j, part in enumerate(value.parts))
         else:
             out.append((path, value))
     return out
+
+
+def is_part(name: str) -> bool:
+    """Whether a :func:`tree_leaves` name is a part of a split leaf."""
+    return name.endswith("]")
+
+
+class TrainRow(typing.NamedTuple):
+    """A local dp row of a state on a mesh: its dp index, its first
+    device (this rank's, on a row that spans processes) and the state
+    whose trees it trains."""
+
+    index: int
+    device: torch.device
+    state: "TrainState"
 
 
 @dataclass
@@ -445,6 +499,11 @@ class TrainState:
     d_leaves: typing.List[typing.Tuple[str, torch.Tensor]] = field(
         default_factory=list
     )
+    # on a mesh: the mesh and this process's dp rows, the first training
+    # this state; a row on other devices trains a state of its own (its
+    # step count unused), rows on the same devices share one
+    mesh: typing.Optional[Mesh] = None
+    rows: typing.List[TrainRow] = field(default_factory=list)
 
 
 def make_optimizers(
@@ -474,65 +533,191 @@ def learning_rate(
 
 
 def init_train_state(
-    params: Params, disc_params: Params, config: TrainingConfig
+    params: Params,
+    disc_params: Params,
+    config: TrainingConfig,
+    *,
+    mesh: typing.Optional[Mesh] = None,
+    use_tp: bool = False,
 ) -> TrainState:
-    """A state training the given torch-layout trees (their leaves are
-    set to require grad) with fresh optimizers."""
-    for tree in (params, disc_params):
-        for _, t in tree_leaves(tree):
-            t.requires_grad_(True)
-    opt_g, opt_d = make_optimizers(config, params, disc_params)
-    return TrainState(
-        params=params,
-        disc_params=disc_params,
-        opt_g=opt_g,
-        opt_d=opt_d,
-        g_leaves=tree_leaves(params),
-        d_leaves=tree_leaves(disc_params),
-    )
+    """A state training the given torch-layout trees with fresh
+    optimizers.  Without a mesh the trees' own leaves are set to require
+    grad and trained in place.  On a mesh the generator tree is placed
+    per local dp row by ``parallel.shard_params`` (with ``use_tp`` the
+    rules' leaves split over the row's tp devices) and the discriminators
+    on each row's first device, as copies or detached aliases."""
+    if mesh is None:
+        for tree in (params, disc_params):
+            for _, t in tree_leaves(tree):
+                t.requires_grad_(True)
+        opt_g, opt_d = make_optimizers(config, params, disc_params)
+        return TrainState(
+            params=params,
+            disc_params=disc_params,
+            opt_g=opt_g,
+            opt_d=opt_d,
+            g_leaves=tree_leaves(params),
+            d_leaves=tree_leaves(disc_params),
+        )
+    if mesh.multiprocess and mesh.shape["tp"] > 1 and (
+            mesh.tp_group is None or mesh.dp_group is None):
+        raise ValueError(
+            "a tp row that spans processes needs the mesh's process groups "
+            "(parallel.make_global_mesh builds them)"
+        )
+    g_trees = shard_params(mesh, params, use_tp=use_tp, requires_grad=True)
+    d_trees = shard_params(mesh, disc_params, requires_grad=True)
+    states: typing.Dict[int, TrainState] = {}
+    rows = []
+    for row, g, d in zip(mesh.local_rows(), g_trees, d_trees):
+        if id(g) not in states:
+            opt_g, opt_d = make_optimizers(config, g, d)
+            states[id(g)] = TrainState(
+                params=g, disc_params=d, opt_g=opt_g, opt_d=opt_d,
+                g_leaves=tree_leaves(g), d_leaves=tree_leaves(d),
+            )
+        rows.append(TrainRow(row.index, row.devices[0], states[id(g)]))
+    state = rows[0].state
+    state.mesh, state.rows = mesh, rows
+    return state
+
+
+def global_norm(
+    grads: typing.Sequence[torch.Tensor],
+    parts: typing.Optional[typing.Sequence[bool]] = None,
+    group: typing.Any = None,
+) -> torch.Tensor:
+    """The L2 norm of all ``grads`` together, on the first one's device.
+    Over a tp row that spans processes (``group``, the row's) the
+    ``parts`` flagged are this rank's parts of split leaves: their squares
+    are summed over the row, the replicated leaves counted once."""
+    device = grads[0].device
+    norms = torch.stack([torch.linalg.vector_norm(g).to(device)
+                         for g in grads])
+    if group is None:
+        return torch.linalg.vector_norm(norms)
+    mask = torch.tensor(parts, device=device)
+    split = all_reduce_sum([norms[mask].square().sum()], group)[0]
+    return torch.sqrt(norms[~mask].square().sum() + split)
 
 
 def clip_by_global_norm(
-    grads: typing.List[torch.Tensor], max_norm: float
+    grads: typing.List[torch.Tensor], max_norm: float,
+    parts: typing.Optional[typing.Sequence[bool]] = None,
+    group: typing.Any = None,
 ) -> None:
     """In place, ``optax.clip_by_global_norm``'s rule: scale by ``max /
-    norm`` only when the global norm exceeds ``max``."""
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g) for g in grads])
-    )
-    torch._foreach_mul_(grads, torch.clamp(max_norm / norm, max=1.0))
+    norm`` only when the global norm (:func:`global_norm`) exceeds
+    ``max``."""
+    norm = global_norm(grads, parts, group)
+    scale = torch.clamp(max_norm / norm, max=1.0)
+    by_device: typing.Dict[torch.device, typing.List[torch.Tensor]] = {}
+    for g in grads:
+        by_device.setdefault(g.device, []).append(g)
+    for device, same in by_device.items():
+        torch._foreach_mul_(same, scale.to(device))
 
 
-def _update(
-    opt: torch.optim.Optimizer,
+def _dense(
     leaves: typing.List[typing.Tuple[str, torch.Tensor]],
     grads: typing.Sequence[typing.Optional[torch.Tensor]],
-    lr: float,
-    grad_clip: typing.Optional[float],
-    shard: typing.Optional[Shard] = None,
-) -> None:
-    """Adam on ``leaves`` with ``grads`` (None = unused: a zero gradient,
-    which still moves a parameter by its moments as optax does), summed
-    over the ranks first on a data-parallel ``shard``.  The gradients stay
-    on each leaf's ``.grad``."""
-    # each gradient in its parameter's strides (autograd may return other
-    # strides, e.g. for a slice of a padded table), which keeps Adam's
-    # multi-tensor kernels on their fast path
-    grads = [
+) -> typing.List[torch.Tensor]:
+    """``grads`` with None (unused: a zero gradient, which still moves a
+    parameter by its moments as optax does) made zeros, each in its
+    parameter's strides (autograd may return other strides, e.g. for a
+    slice of a padded table), which keeps Adam's multi-tensor kernels on
+    their fast path."""
+    return [
         torch.zeros_like(t) if g is None
         else g if g.stride() == t.stride()
         else torch.empty_like(t).copy_(g)
         for (_, t), g in zip(leaves, grads)
     ]
-    if shard is not None:
-        grads = all_reduce_sum(grads)
+
+
+def _update(
+    opt: torch.optim.Optimizer,
+    leaves: typing.List[typing.Tuple[str, torch.Tensor]],
+    grads: typing.List[torch.Tensor],
+    lr: float,
+    grad_clip: typing.Optional[float],
+    group: typing.Any = None,
+) -> None:
+    """Adam on ``leaves`` with the summed ``grads``, clipped by the global
+    norm first (over a tp row that spans processes, ``group``).  The
+    gradients stay on each leaf's ``.grad``."""
     if grad_clip:
-        clip_by_global_norm(grads, grad_clip)
+        clip_by_global_norm(grads, grad_clip,
+                            [is_part(n) for n, _ in leaves], group)
     for (_, t), g in zip(leaves, grads):
         t.grad = g
-    for group in opt.param_groups:
-        group["lr"] = lr
+    for group_ in opt.param_groups:
+        group_["lr"] = lr
     opt.step()
+
+
+class _Parallel(typing.NamedTuple):
+    """How one step's rows combine: each local row's shard and state, the
+    dp size, the dp process group the sums run over (``collective``), and
+    the tp row group when a row spans processes."""
+
+    rows: typing.List[typing.Tuple[typing.Optional[Shard], TrainState]]
+    dp: int
+    collective: bool
+    dp_group: typing.Any = None
+    tp_group: typing.Any = None
+    tp: int = 1
+
+    def sum(self, tensors: typing.List[torch.Tensor]) -> typing.List[
+            torch.Tensor]:
+        """The sum over the dp group (the rows of other processes)."""
+        if not self.collective:
+            return tensors
+        return all_reduce_sum(tensors, self.dp_group)
+
+    def apply(self, kind: str, grads_by_row, lr: float, grad_clip) -> None:
+        """Sum each row's gradients of tree ``kind`` (``"g"``/``"d"``)
+        over the local rows and the dp group, average the replicated ones
+        over a tp row that spans processes, then step every state."""
+        states = list({id(st): st for _, st in self.rows}.values())
+        first = states[0]
+        leaves0 = getattr(first, f"{kind}_leaves")
+        total = None
+        for (_, st), grads in zip(self.rows, grads_by_row):
+            dense = _dense(getattr(st, f"{kind}_leaves"), grads)
+            if st is not first:
+                dense = [g.to(t.device) for g, (_, t) in zip(dense, leaves0)]
+            total = dense if total is None else [
+                a + b for a, b in zip(total, dense)]
+        total = self.sum(total)
+        if self.tp_group is not None:
+            shared = [i for i, (n, _) in enumerate(leaves0) if not is_part(n)]
+            mean = all_reduce_sum([total[i] for i in shared], self.tp_group)
+            for i, g in zip(shared, mean):
+                total[i] = g * (1.0 / self.tp)
+        has_parts = any(is_part(n) for n, _ in leaves0)
+        for st in states:
+            leaves = getattr(st, f"{kind}_leaves")
+            grads = total if st is first else [
+                g.to(t.device) for g, (_, t) in zip(total, leaves)]
+            _update(getattr(st, f"opt_{kind}"), leaves, grads, lr, grad_clip,
+                    self.tp_group if has_parts else None)
+
+
+def _parallel(state: TrainState, shard: typing.Optional[Shard]) -> _Parallel:
+    mesh = state.mesh
+    if mesh is None:
+        return _Parallel([(shard, state)], 1 if shard is None
+                         else shard.world, shard is not None)
+    if shard is not None:
+        raise ValueError("a state on a mesh takes its shards from the mesh")
+    dp, tp = mesh.shape["dp"], mesh.shape["tp"]
+    return _Parallel(
+        [(Shard(r.index, dp) if dp > 1 else None, r.state)
+         for r in state.rows],
+        dp, mesh.multiprocess and dp > 1, mesh.dp_group,
+        mesh.tp_group if mesh.multiprocess else None, tp,
+    )
 
 
 @contextlib.contextmanager
@@ -558,17 +743,22 @@ def make_train_step(
     discriminators, as the reference), in place; returns ``(state,
     metrics)`` with 0-dim tensors.  With ``shard`` it is one rank's part of
     the data-parallel step (module docstring): ``batch`` holds the rank's
-    rows, ``noise`` the global batch's draws.  The generator forward runs
-    once, with gradients: the D step takes its output detached, since the
-    D update touches none of G's parameters.  ``mark(name)`` is called
-    where each part of the step begins: ``"g_forward"`` (the generator, and the
-    discriminators on its output for its loss), ``"mas"``, ``"d_step"``
-    (the discriminators' losses and gradients), ``"g_backward"``,
-    ``"optimizer"`` (either update), and ``"end"``.
+    rows, ``noise`` the global batch's draws.  On a mesh state ``batch``
+    holds this process's dp rows' rows (``parallel.
+    process_local_batch_slice``), each row runs its own, and ``noise``
+    and ``generator`` are the global batch's as without a mesh.  The
+    generator forward runs once, with gradients: the D step takes its
+    output detached, since the D update touches none of G's parameters.
+    ``mark(name)`` is called where each part of the step begins:
+    ``"g_forward"`` (the generator, and the discriminators on its output
+    for its loss), ``"mas"``, ``"d_step"`` (the discriminators' losses and
+    gradients), ``"g_backward"``, ``"optimizer"`` (either update), and
+    ``"end"``.
     """
     model = VitsModel(
         config.model, decoder_dtype=torch.float32, stage_max_channels=0
     )
+    hop = config.audio.hop_length
 
     def train_step(
         state: TrainState,
@@ -579,73 +769,110 @@ def make_train_step(
         shard: typing.Optional[Shard] = None,
     ) -> typing.Tuple[TrainState, typing.Dict[str, torch.Tensor]]:
         lr = learning_rate(config, state.step, steps_per_epoch)
-        # the mean losses' share of their global mean: 1 / world (a power
-        # of two scales exactly)
-        share = 1.0 if shard is None else 1.0 / shard.world
+        par = _parallel(state, shard)
+        # the mean losses' share of their global mean: 1 / dp (a power of
+        # two scales exactly)
+        share = 1.0 / par.dp
+        totals = None
+        if par.dp > 1:
+            totals = par.sum([batch_totals(batch, hop)])[0]
+        n_rows = len(par.rows)
+        if n_rows > 1:
+            size = batch.phoneme_ids.shape[0]
+            rows_of = [TrainBatch(*(
+                None if t is None else t[shard_rows(k, n_rows, size)].to(
+                    r.device)
+                for t in (batch.phoneme_ids, batch.text_lengths,
+                          batch.audio, batch.spec_lengths,
+                          batch.speaker_ids)
+            )) for k, r in enumerate(state.rows)]
+        elif state.mesh is not None:
+            rows_of = [batch.to(state.rows[0].device)]
+        else:
+            rows_of = [batch]
+        # every local row draws the global batch's noise and keeps its
+        # rows: each starts from the generator's state at the step's start
+        start = (generator.get_state()
+                 if generator is not None and n_rows > 1 else None)
         with full_f32():
-            mark("g_forward")
-            out = generator_forward(
-                model, config, state.params, batch, noise=noise,
-                generator=generator, mark=mark, shard=shard,
-            )
-            y_real = out["y_real"].detach()
+            outs, grads_d = [], []
+            for (row_shard, st), rows in zip(par.rows, rows_of):
+                if start is not None:
+                    generator.set_state(start)
+                mark("g_forward")
+                out = generator_forward(
+                    model, config, st.params, rows, noise=noise,
+                    generator=generator, mark=mark, shard=row_shard,
+                    totals=totals,
+                )
+                y_real = out["y_real"].detach()
 
-            # ---- discriminator update ----
-            mark("d_step")
-            real_logits, _ = discriminate(state.disc_params, y_real)
-            fake_logits, _ = discriminate(
-                state.disc_params, out["y_hat"].detach()
-            )
-            loss_d = discriminator_adv_loss(real_logits, fake_logits)
-            grads_d = torch.autograd.grad(
-                loss_d * share, [t for _, t in state.d_leaves],
-                allow_unused=True,
-            )
+                # ---- discriminator gradients ----
+                mark("d_step")
+                real_logits, _ = discriminate(st.disc_params, y_real)
+                fake_logits, _ = discriminate(
+                    st.disc_params, out["y_hat"].detach()
+                )
+                loss_d = discriminator_adv_loss(real_logits, fake_logits)
+                grads_d.append(torch.autograd.grad(
+                    loss_d * share, [t for _, t in st.d_leaves],
+                    allow_unused=True,
+                ))
+                outs.append((out, y_real, loss_d))
             mark("optimizer")
-            _update(state.opt_d, state.d_leaves, grads_d, lr,
-                    config.grad_clip, shard)
+            par.apply("d", grads_d, lr, config.grad_clip)
 
             # ---- generator update ----
-            mark("g_forward")
-            with torch.no_grad():  # real feature maps are targets only
-                _, fmaps_r = discriminate(state.disc_params, y_real)
-            fake_logits, fmaps_f = discriminate(
-                state.disc_params, out["y_hat"]
-            )
-            loss_adv = generator_adv_loss(fake_logits)
-            loss_fm = feature_matching_loss(fmaps_r, fmaps_f)
-            # this rank's part of the generator loss: the KL and duration
-            # terms are over the global normalizers already
-            objective = (
-                (out["loss_mel"] * config.c_mel + loss_adv + loss_fm) * share
-                + out["loss_kl"] * config.c_kl
-                + out["loss_dur"]
-            )
-            mark("g_backward")
-            grads_g = torch.autograd.grad(
-                objective, [t for _, t in state.g_leaves], allow_unused=True
-            )
+            metrics_by_row, grads_g = [], []
+            for (_, st), (out, y_real, loss_d) in zip(par.rows, outs):
+                mark("g_forward")
+                with torch.no_grad():  # real feature maps are targets only
+                    _, fmaps_r = discriminate(st.disc_params, y_real)
+                fake_logits, fmaps_f = discriminate(
+                    st.disc_params, out["y_hat"]
+                )
+                loss_adv = generator_adv_loss(fake_logits)
+                loss_fm = feature_matching_loss(fmaps_r, fmaps_f)
+                # this row's part of the generator loss: the KL and
+                # duration terms are over the global normalizers already
+                objective = (
+                    (out["loss_mel"] * config.c_mel + loss_adv + loss_fm)
+                    * share
+                    + out["loss_kl"] * config.c_kl
+                    + out["loss_dur"]
+                )
+                mark("g_backward")
+                grads_g.append(torch.autograd.grad(
+                    objective, [t for _, t in st.g_leaves],
+                    allow_unused=True,
+                ))
+                metrics_by_row.append({
+                    "loss_mel": out["loss_mel"],
+                    "loss_kl": out["loss_kl"],
+                    "loss_dur": out["loss_dur"],
+                    "loss_adv": loss_adv,
+                    "loss_fm": loss_fm,
+                    "loss_d": loss_d,
+                })
             mark("optimizer")
-            _update(state.opt_g, state.g_leaves, grads_g, lr,
-                    config.grad_clip, shard)
+            par.apply("g", grads_g, lr, config.grad_clip)
             mark("end")
         state.step += 1
-        metrics = {
-            "loss_mel": out["loss_mel"],
-            "loss_kl": out["loss_kl"],
-            "loss_dur": out["loss_dur"],
-            "loss_adv": loss_adv,
-            "loss_fm": loss_fm,
-            "loss_d": loss_d,
-        }
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        if shard is not None:
-            # the global values: sums of the ranks' shares
-            parts = torch.stack([
-                v if k in ("loss_kl", "loss_dur") else v * share
-                for k, v in metrics.items()
-            ])
-            metrics = dict(zip(metrics, all_reduce_sum([parts])[0]))
+        names = list(metrics_by_row[0])
+        if par.dp > 1:
+            # the global values: sums of the rows' shares
+            device = metrics_by_row[0]["loss_mel"].device
+            parts = sum(
+                torch.stack([
+                    m[k].detach() if k in ("loss_kl", "loss_dur")
+                    else m[k].detach() * share
+                    for k in names
+                ]).to(device)
+                for m in metrics_by_row
+            )
+            metrics = dict(zip(names, par.sum([parts])[0]))
+        else:
+            metrics = {k: v.detach() for k, v in metrics_by_row[0].items()}
         loss_g = (
             metrics["loss_mel"] * config.c_mel
             + metrics["loss_kl"] * config.c_kl
@@ -660,6 +887,7 @@ def make_train_step(
 
 __all__ = [
     "Shard",
+    "TrainRow",
     "TrainBatch",
     "TrainNoise",
     "TrainState",

@@ -10,11 +10,13 @@ from .distributed import (  # noqa: F401
     process_local_batch_slice,
 )
 from .mesh import (  # noqa: F401
+    LocalRow,
     Mesh,
     batch_sharding,
+    gather_params,
     make_mesh,
     param_sharding,
     shard_batch,
     shard_params,
 )
-from .tensor import Split  # noqa: F401
+from .tensor import Row, Split  # noqa: F401

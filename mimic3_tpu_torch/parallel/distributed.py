@@ -15,7 +15,10 @@ init that fails raises; it never retries on another backend.
 
 Where the reference's ``jit`` inserts the gradient ``psum`` over replicated
 params, the port's train step calls :func:`all_reduce_sum` once per
-parameter tree, on one flattened bucket.
+parameter tree, on one flattened bucket, over the mesh's dp group (the
+world when ``tp`` is 1).  With ``tp > 1`` :func:`make_global_mesh` also
+builds each tp row's group, over which ``parallel/tensor.py`` runs the
+split convs' collectives.
 """
 
 from __future__ import annotations
@@ -152,35 +155,42 @@ def make_global_mesh(
     dp_outer: typing.Optional[int] = None,
     device: typing.Union[str, torch.device, None] = None,
 ):
-    """Mesh over EVERY process's devices.
+    """Mesh over EVERY process's devices, the reference's ``(dp, tp)``
+    layout.
 
     One process (no group): every visible card, or one CPU replica when
     ``device`` names the CPU.  Several processes: each rank's
-    :func:`local_device`, ordered by rank, so the rows of a batch split
-    over dp in rank order.  ``dp_outer`` overrides the data-parallel
-    size (default ``total_devices // tp``); the mesh takes the first
-    ``dp * tp`` devices.  Each rank holds one device, so with several
-    processes a ``tp > 1`` row would span ranks: that raises
-    ``NotImplementedError`` (tp across processes is not ported), and a
-    ``dp_outer`` other than the number of ranks raises ``ValueError``
-    (a rank outside the mesh would own no row).
+    :func:`local_device`, ordered by rank, so tp rows are contiguous in
+    rank order (row ``i`` holds ranks ``i * tp .. i * tp + tp - 1``) and
+    a batch splits over the rows in dp order.  ``dp_outer`` overrides the
+    data-parallel size (default ``total_devices // tp``); the mesh takes
+    the first ``dp * tp`` devices.
+
+    Each rank holds one device, so with several processes and ``tp > 1``
+    every tp row spans ranks.  The mesh then carries this rank's two
+    process groups (:class:`~.mesh.Mesh` ``tp_group``, ``dp_group``): its
+    row's, over which ``parallel/tensor.py`` gathers and reduces, and its
+    column's, over which the train step sums gradients.  Every rank
+    creates every group, in one order.  A ``tp`` that does not divide the
+    ranks, or a ``dp_outer`` that leaves a rank without a row or asks for
+    devices no rank holds, raises ``ValueError``.
     """
     import torch.distributed as dist
 
     from .mesh import make_mesh
 
     rank, world = _world()
-    if world > 1 and tp > 1:
-        raise NotImplementedError(
-            f"tp={tp} over {world} processes of one device each: a tp row "
-            "would span processes, and tensor parallelism across processes "
-            "is not ported; see ROADMAP.md"
-        )
-    if world > 1 and dp_outer is not None and dp_outer != world:
+    if world > 1 and world % tp:
         raise ValueError(
-            f"dp_outer={dp_outer} over {world} processes of one device "
-            "each: every rank must own one dp row"
+            f"tp={tp} does not divide the {world} processes of one device "
+            "each: every rank must sit in one tp row"
         )
+    if world > 1 and dp_outer is not None and dp_outer * tp != world:
+        raise ValueError(
+            f"dp_outer={dp_outer} x tp={tp} over {world} processes of one "
+            "device each: every rank must own one dp row"
+        )
+    tp_group = dp_group = None
     if world == 1:
         platform = local_device(device).type
         devices = make_mesh(platform=platform).devices.ravel().tolist()
@@ -190,30 +200,54 @@ def make_global_mesh(
         dist.all_gather_object(names, str(local_device(device)))
         devices = [torch.device(n) for n in names]
         owners = list(range(world))
+        if tp > 1:
+            tp_group, dp_group = _row_and_column_groups(rank, world, tp)
     dp = dp_outer if dp_outer is not None else len(devices) // tp
     mesh = make_mesh(n_devices=dp * tp, dp=dp, tp=tp, devices=devices)
     processes = np.asarray(owners[: dp * tp], np.int64).reshape(dp, tp)
-    return dataclasses.replace(mesh, processes=processes, process_index=rank)
+    return dataclasses.replace(mesh, processes=processes, process_index=rank,
+                               tp_group=tp_group, dp_group=dp_group)
+
+
+def _row_and_column_groups(rank: int, world: int, tp: int):
+    """(this rank's tp row group, its dp column group) of the ``(world //
+    tp, tp)`` grid of ranks.  ``dist.new_group`` is collective over the
+    world: every rank creates every row's group, then every column's, in
+    one order, and keeps its own."""
+    import torch.distributed as dist
+
+    dp = world // tp
+    rows = [dist.new_group([i * tp + j for j in range(tp)])
+            for i in range(dp)]
+    columns = [dist.new_group([i * tp + j for i in range(dp)])
+               for j in range(tp)]
+    return rows[rank // tp], columns[rank % tp]
 
 
 def process_local_batch_slice(
-    global_batch: int,
+    global_batch: int, mesh=None,
 ) -> typing.Tuple[int, int]:
-    """(start, size) of this process's shard of a global batch (which
-    must divide by the number of processes)."""
+    """(start, size) of this process's shard of a global batch: the rows
+    of its dp rows.  Without a mesh each rank is a dp row of its own (the
+    global batch must divide by the number of processes); on a mesh whose
+    tp rows span processes the ranks of one row hold the same rows."""
     from .mesh import shard_rows
 
-    rank, world = _world()
-    rows = shard_rows(rank, world, global_batch)
-    return rows.start, rows.stop - rows.start
+    if mesh is None:
+        rank, world = _world()
+        rows = shard_rows(rank, world, global_batch)
+        return rows.start, rows.stop - rows.start
+    mine = [row.index for row in mesh.local_rows()]
+    first = shard_rows(mine[0], mesh.shape["dp"], global_batch)
+    return first.start, (first.stop - first.start) * len(mine)
 
 
-def _staged(t: torch.Tensor) -> torch.Tensor:
+def _staged(t: torch.Tensor, group=None) -> torch.Tensor:
     """``t`` where the group's backend takes it: gloo's collectives run on
     host tensors, NCCL's on this rank's card."""
     import torch.distributed as dist
 
-    if dist.get_backend() == "gloo":
+    if dist.get_backend(group) == "gloo":
         return t.cpu()
     if t.device.type != "cuda":
         return t.to(torch.device("cuda", torch.cuda.current_device()))
@@ -221,19 +255,19 @@ def _staged(t: torch.Tensor) -> torch.Tensor:
 
 
 def all_reduce_sum(
-    tensors: typing.Sequence[torch.Tensor],
+    tensors: typing.Sequence[torch.Tensor], group=None,
 ) -> typing.List[torch.Tensor]:
-    """The sum over every rank of each tensor, as one collective on one
-    flattened bucket (a tree's ~950 gradients in one call).  Returns
-    contiguous tensors of the inputs' shapes on their device; the inputs
-    are not changed."""
+    """The sum over every rank of ``group`` (default: the world) of each
+    tensor, as one collective on one flattened bucket (a tree's ~950
+    gradients in one call).  Returns contiguous tensors of the inputs'
+    shapes on their device; the inputs are not changed."""
     import torch.distributed as dist
 
     if not tensors:
         return []
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    staged = _staged(flat)
-    dist.all_reduce(staged, op=dist.ReduceOp.SUM)
+    staged = _staged(flat, group)
+    dist.all_reduce(staged, op=dist.ReduceOp.SUM, group=group)
     flat = staged.to(flat.device)
     out, offset = [], 0
     for t in tensors:
@@ -242,15 +276,16 @@ def all_reduce_sum(
     return out
 
 
-def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``t`` concatenated along dim 0 in rank order (the
-    shapes must agree across ranks), on ``t``'s device."""
+def all_gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's ``t`` of ``group`` (default: the world) concatenated
+    along dim 0 in rank order (the shapes must agree across ranks), on
+    ``t``'s device."""
     import torch.distributed as dist
 
-    _, world = _world()
-    if world == 1:
+    if _world()[1] == 1 or dist.get_world_size(group) == 1:
         return t
-    staged = _staged(t.contiguous())
-    parts = [torch.empty_like(staged) for _ in range(world)]
-    dist.all_gather(parts, staged)
+    staged = _staged(t.contiguous(), group)
+    parts = [torch.empty_like(staged)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, staged, group=group)
     return torch.cat(parts).to(t.device)

@@ -15,8 +15,11 @@ them all unless :func:`~.distributed.make_global_mesh` spans several):
   (``parallel/tensor.py::Split``) and ``parallel/tensor.py`` runs the
   convs over them with explicit gathers and reductions, where XLA
   inserts them for the reference.  Every other leaf lives on the row's
-  first device.  A row's devices belong to one process: tp across
-  processes is not ported (``ROADMAP.md``).
+  first device.  A row's devices belong to one process, or (a mesh from
+  :func:`~.distributed.make_global_mesh` over several ranks) each to a
+  rank of its own: then every rank of the row runs the row's program on
+  its device, holds its own part of each split leaf, and the collectives
+  run over the row's process group.
 
 The device list, when none is given, is the visible cards ``cuda:0..n-1``
 (raising when fewer are visible) or, on the CPU, ``n`` replicas on the one
@@ -33,7 +36,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .tensor import Split
+from .tensor import Row, Split
 
 Params = typing.Dict[str, typing.Any]
 
@@ -42,14 +45,31 @@ Params = typing.Dict[str, typing.Any]
 # [Cin, Cout, K] for the transposed ``ups``), so the sharded axis is not
 # the reference's (its convs are [K, Cin, Cout]): the wide output
 # channels of ffn conv_1 and of the upsamplers, the input channels of
-# ffn conv_2.
+# ffn conv_2.  Training trees keep the upsamplers' weight norm unfolded;
+# its norm runs over every axis but the output channel, so ``weight_v``
+# and ``weight_g`` split with the bias and each part folds its own norm
+# exactly.  The reference's rules name only ``weight``, so there it
+# splits only those biases: another placement, the same results.
 _TP_RULES: typing.Tuple[typing.Tuple[str, int], ...] = (
     ("ffn_layers/*/conv_1/weight", 0),
     ("ffn_layers/*/conv_1/bias", 0),
     ("ffn_layers/*/conv_2/weight", 1),
     ("dec/ups/*/weight", 1),
+    ("dec/ups/*/weight_v", 1),
+    ("dec/ups/*/weight_g", 1),
     ("dec/ups/*/bias", 0),
 )
+
+
+class LocalRow(typing.NamedTuple):
+    """A dp row this process works on: its dp index, the devices this
+    process runs it on (the whole tp row, or this rank's one device when
+    the row spans processes) and, in that case, this rank's tp index
+    (``column``; None when the process holds the whole row)."""
+
+    index: int
+    devices: typing.Tuple[torch.device, ...]
+    column: typing.Optional[int] = None
 
 
 @dataclass(frozen=True, eq=False)
@@ -58,12 +78,17 @@ class Mesh:
 
     ``devices[i, j]`` is a ``torch.device``; ``processes[i, j]`` is the
     rank of the process that holds it and ``process_index`` this
-    process's rank (all 0 in one process).
+    process's rank (all 0 in one process).  Over several processes with
+    ``tp > 1``, ``tp_group`` is the process group of this rank's tp row
+    and ``dp_group`` that of its tp column (the ranks it sums gradients
+    with); None otherwise.
     """
 
     devices: np.ndarray
     processes: np.ndarray
     process_index: int = 0
+    tp_group: typing.Any = None
+    dp_group: typing.Any = None
 
     @property
     def shape(self) -> typing.Dict[str, int]:
@@ -74,29 +99,38 @@ class Mesh:
     def multiprocess(self) -> bool:
         return bool((self.processes != self.process_index).any())
 
-    def local_rows(
-        self,
-    ) -> typing.List[typing.Tuple[int, typing.Tuple[torch.device, ...]]]:
-        """(dp index, the row's tp devices) of the dp rows this process
-        holds, in dp order.  A row that spans processes raises
-        ``NotImplementedError``."""
+    def local_rows(self) -> typing.List[LocalRow]:
+        """The dp rows this process works on, in dp order: each row it
+        holds whole, and the row it holds one device of (a row spanning
+        processes, one device per rank).  Raises ``ValueError`` when this
+        process holds no device of the mesh, or several but not all of a
+        row's."""
         rows = []
         for i, owners in enumerate(self.processes):
-            mine = owners == self.process_index
-            if mine.any() and not mine.all():
-                raise NotImplementedError(
-                    f"dp row {i} spans processes {sorted(set(owners))}: "
-                    "tensor parallelism across processes is not ported; "
-                    "see ROADMAP.md"
+            mine = np.flatnonzero(owners == self.process_index)
+            if len(mine) == len(owners):
+                rows.append(LocalRow(i, tuple(self.devices[i])))
+            elif len(mine) == 1:
+                j = int(mine[0])
+                rows.append(LocalRow(i, (self.devices[i, j],), j))
+            elif len(mine):
+                raise ValueError(
+                    f"process {self.process_index} holds {len(mine)} of dp "
+                    f"row {i}'s {len(owners)} devices: a row that spans "
+                    "processes takes one device from each"
                 )
-            if mine.all():
-                rows.append((i, tuple(self.devices[i])))
+        if not rows:
+            raise ValueError(
+                f"process {self.process_index} holds no device of this "
+                f"mesh (processes {self.processes.tolist()})"
+            )
         return rows
 
     def local_shards(self) -> typing.List[typing.Tuple[int, torch.device]]:
-        """(dp index, first device) of the dp rows this process holds
-        (column 0 of the tp axis), in dp order."""
-        return [(i, row[0]) for i, row in self.local_rows()]
+        """(dp index, device) of the dp rows this process works on: the
+        row's first device, or this rank's device of a row that spans
+        processes."""
+        return [(row.index, row.devices[0]) for row in self.local_rows()]
 
 
 def _default_devices(
@@ -210,43 +244,79 @@ def batch_sharding(mesh: Mesh) -> BatchSharding:
 
 
 def shard_params(
-    mesh: Mesh, params: Params, use_tp: bool = False
+    mesh: Mesh, params: Params, use_tp: bool = False,
+    requires_grad: bool = False,
 ) -> typing.List[Params]:
     """One tree of ``params`` (a tree of tensors) per dp row this process
-    holds; rows on the same devices share one tree.
+    works on (:meth:`Mesh.local_rows`); rows on the same devices share one
+    tree.
 
     Each leaf :func:`param_sharding` marks becomes a
     :class:`~.tensor.Split` in T contiguous parts along its axis, part
-    ``j`` on the row's device ``j``; a marked axis that does not divide by
-    T raises ``ValueError``.  Every other leaf, and every leaf without
-    ``use_tp`` or on a ``tp == 1`` mesh, lives on the row's first device.
+    ``j`` on the row's device ``j`` (a row that spans processes: this
+    rank's part alone, on its device, with the row's process group); a
+    marked axis that does not divide by T raises ``ValueError``.  Every
+    other leaf, and every leaf without ``use_tp`` or on a ``tp == 1``
+    mesh, lives on the row's first device (this rank's).  Parts are new
+    contiguous leaf tensors; with ``requires_grad`` every placed tensor
+    requires grad (a leaf already on its device is the caller's storage,
+    detached).
     """
     on = use_tp and mesh.shape["tp"] > 1
+    tp = mesh.shape["tp"]
 
-    def place(row, path: str, t: torch.Tensor):
+    def fresh(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+        return torch.empty(t.shape, dtype=t.dtype, device=device).copy_(t)
+
+    def place(devices, column, path: str, t: torch.Tensor):
+        t = t.detach()
         axis = _tp_axis(path) if on else None
         if axis is None:
-            return t.to(row[0])
-        if t.shape[axis] % len(row):
+            return t.to(devices[0]).requires_grad_(requires_grad)
+        if t.shape[axis] % tp:
             raise ValueError(
                 f"{path}: axis {axis} of {tuple(t.shape)} does not divide "
-                f"over tp={len(row)}"
+                f"over tp={tp}"
             )
-        return Split(tuple(
-            part.to(d).contiguous()
-            for part, d in zip(t.chunk(len(row), axis), row)
-        ), axis)
+        chunks = t.chunk(tp, axis)
+        if column is None:
+            parts = zip(chunks, devices)
+            row = None
+        else:
+            if mesh.tp_group is None:
+                raise ValueError(
+                    "a tp row that spans processes needs its process group "
+                    "(parallel.make_global_mesh builds it)"
+                )
+            parts = [(chunks[column], devices[0])]
+            row = Row(mesh.tp_group, column, tp)
+        return Split(tuple(fresh(c, d).requires_grad_(requires_grad)
+                           for c, d in parts), axis, row)
 
     trees: typing.Dict[typing.Tuple[torch.device, ...], Params] = {}
     out = []
-    for _, row in mesh.local_rows():
-        key = row if on else row[:1]
+    for row in mesh.local_rows():
+        key = row.devices if on else row.devices[:1]
         if key not in trees:
             trees[key] = _map_tree(
-                lambda path, t, key=key: place(key, path, t), params
+                lambda path, t, key=key, column=row.column: place(
+                    key, column, path, t),
+                params,
             )
         out.append(trees[key])
     return out
+
+
+def gather_params(params: Params) -> Params:
+    """``params`` with every :class:`~.tensor.Split` made whole again (on
+    part 0's device, detached; over a row that spans processes every rank
+    of the row must call this, and each gets the whole tensor)."""
+    from .tensor import cat_parts
+
+    with torch.no_grad():
+        return _map_tree(
+            lambda _, t: cat_parts(t) if isinstance(t, Split) else t, params
+        )
 
 
 def shard_batch(

@@ -39,8 +39,10 @@ tp axis is larger than 1, each dp row splits the tp-ruled weights over
 its tp devices (``parallel/mesh.py::shard_params``): the encoder FFNs
 Megatron style, the decoder's upsamplers by output channel, the convs
 routed through ``parallel/tensor.py`` and the rest on the row's first
-device.  As in the reference, the fused stage kernel is off under any
-``tp > 1`` mesh.
+device.  Over a mesh whose tp rows span processes every rank of a row
+runs the row's program on its device with its own part of each split
+leaf, and the collectives run over the row's process group.  As in the
+reference, the fused stage kernel is off under any ``tp > 1`` mesh.
 
 Not ported yet: CUDA graphs per warmed signature.
 """
@@ -717,8 +719,8 @@ class TorchVitsSession:
                 raise ValueError("a mesh names its devices; pass no device")
             # each local dp row's devices: the tp row with use_tp, else
             # its first device alone
-            rows = [row if use_tp else row[:1]
-                    for _, row in mesh.local_rows()]
+            rows = [row.devices if use_tp else row.devices[:1]
+                    for row in mesh.local_rows()]
             for row in rows:
                 for d in row:
                     resolve_device(d)
@@ -854,10 +856,16 @@ class TorchVitsSession:
 
     def _all_rows(self, rows: np.ndarray) -> np.ndarray:
         """This process's shards' rows, or on a mesh over several
-        processes every rank's, in dp order."""
+        processes every dp row's, in dp order: each row's as its rank at
+        tp index 0 computed them, so every rank of a tp row that spans
+        processes goes on from the same values (the totals pick the
+        frame bucket its collectives run at)."""
         if not self._multiprocess:
             return rows
-        return all_gather_rows(torch.from_numpy(rows)).numpy()
+        ranks = all_gather_rows(torch.from_numpy(rows)).chunk(
+            torch.distributed.get_world_size())
+        leads = dict.fromkeys(int(r) for r in self.mesh.processes[:, 0])
+        return torch.cat([ranks[r] for r in leads]).numpy()
 
     def _shards(
         self, batch: int

@@ -13,10 +13,11 @@ with one process per card, launched by PyTorch's launcher::
         -m mimic3_tpu_torch.train_cli VOICE_DIR --metadata ... ...
 
 Each rank trains on ``cuda:LOCAL_RANK`` (``parallel/distributed.py``
-picks the backend), iterates the same seeded batch stream and keeps its
-rows of each global batch (rounded up to a multiple of the world size);
-the step sums the gradients over the ranks (``models/vits/train.py``),
-so it equals the one-device step on the global batch.  Checkpoints are
+picks the backend) as one dp row of ``parallel.make_global_mesh()``,
+iterates the same seeded batch stream and keeps its rows of each global
+batch (rounded up to a multiple of the world size); the step sums the
+gradients over the mesh's dp group (``models/vits/train.py``), so it
+equals the one-device step on the global batch.  Checkpoints are
 ``torch.save`` files under ``--checkpoint-dir/<step>/``; ``--export``
 writes inference weights back to the voice directory as the reference's
 ``generator.npz`` (JAX layout, weight norm folded, no ``enc_q``), which
@@ -73,7 +74,10 @@ def merge_pretrained(init_params, pretrained):
 def export_params(params) -> typing.Dict[str, typing.Any]:
     """Inference weights of a torch-layout training tree: the reference's
     ``generator.npz`` pytree (JAX layout, weight norm folded, without the
-    training-only posterior encoder)."""
+    training-only posterior encoder).  Leaves split over a tp row are
+    gathered first (``parallel.gather_params``: over a row that spans
+    processes, every rank of the row calls this)."""
+    from .parallel import gather_params
     from .runtime.convert import fold_weight_norm, to_jax_layout
 
     def fold_tree(p):
@@ -85,9 +89,9 @@ def export_params(params) -> typing.Dict[str, typing.Any]:
         return {k: fold_tree(v) if isinstance(v, dict) else v
                 for k, v in p.items()}
 
-    return fold_tree(to_jax_layout(
+    return fold_tree(to_jax_layout(gather_params(
         {k: v for k, v in params.items() if k != "enc_q"}
-    ))
+    )))
 
 
 def params_digest(state) -> str:
@@ -117,8 +121,9 @@ def save_checkpoint(path: Path, state) -> None:
     )
 
 
-def load_checkpoint(path: Path, config, device):
-    """The :class:`~.models.vits.train.TrainState` saved at ``path``."""
+def load_checkpoint(path: Path, config, device, mesh=None):
+    """The :class:`~.models.vits.train.TrainState` saved at ``path`` (on
+    ``mesh`` when given)."""
     import torch
 
     from .models.vits.train import init_train_state
@@ -126,7 +131,8 @@ def load_checkpoint(path: Path, config, device):
     saved = torch.load(
         path / CHECKPOINT_FILE, map_location=device, weights_only=True
     )
-    state = init_train_state(saved["params"], saved["disc_params"], config)
+    state = init_train_state(saved["params"], saved["disc_params"], config,
+                             mesh=mesh)
     state.opt_g.load_state_dict(saved["opt_g"])
     state.opt_d.load_state_dict(saved["opt_d"])
     state.step = int(saved["step"])
@@ -175,13 +181,16 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
     from .config import TrainingConfig
     from .models.vits.model import mix_seed
     from .models.vits.train import (
-        Shard,
         TrainBatch,
         init_train_state,
         init_training_params,
         make_train_step,
     )
-    from .parallel import initialize_distributed, process_local_batch_slice
+    from .parallel import (
+        initialize_distributed,
+        make_global_mesh,
+        process_local_batch_slice,
+    )
     from .parallel.distributed import local_device
     from .runtime.convert import (
         load_pytree_npz,
@@ -194,15 +203,18 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
     # several processes (torch.distributed.run's variables set): join
     # the group first; one process: a no-op
     multi_process = initialize_distributed(device=args.device)
-    shard = None
+    mesh = None
     if multi_process:
         import torch.distributed as dist
 
         device = local_device(args.device)
-        shard = Shard(dist.get_rank(), dist.get_world_size())
+        # one dp row per rank; the step sums over the mesh's dp group
+        mesh = make_global_mesh(device=args.device)
+        rank, world = dist.get_rank(), dist.get_world_size()
     else:
         device = resolve_device(args.device)
-    leader = shard is None or shard.rank == 0
+        rank, world = 0, 1
+    leader = rank == 0
     voice_dir = Path(args.voice_dir)
     config = TrainingConfig.load_path(voice_dir / "config.json")
     if args.learning_rate:
@@ -210,7 +222,6 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
     if args.seed is not None:
         config.seed = args.seed
     batch_size = args.batch_size or config.batch_size
-    world = 1 if shard is None else shard.world
     if batch_size % world:
         batch_size += world - batch_size % world
         _LOGGER.info("Rounded batch size to %d (world size %d)",
@@ -239,6 +250,7 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
         to_torch_train_params(params, device),
         to_torch_train_params(disc_params, device),
         config,
+        mesh=mesh,
     )
 
     ckpt_dir = Path(
@@ -252,7 +264,8 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
         )
         if steps:
             start_step = steps[-1]
-            state = load_checkpoint(ckpt_dir / str(start_step), config, device)
+            state = load_checkpoint(ckpt_dir / str(start_step), config,
+                                    device, mesh)
             _LOGGER.info("Resumed from step %d", start_step)
 
     steps_per_epoch = max(1, len(utterances) // batch_size)
@@ -262,11 +275,10 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
         "Training: %d steps, batch %d, on %s%s", args.steps, batch_size,
         torch.cuda.get_device_name(device) if device.type == "cuda"
         else device,
-        "" if shard is None else
-        f" (rank {shard.rank} of {shard.world}, {device})",
+        "" if mesh is None else f" (rank {rank} of {world}, {device})",
     )
     # every rank iterates the same batch stream and keeps its rows
-    local_start, local_size = process_local_batch_slice(batch_size)
+    local_start, local_size = process_local_batch_slice(batch_size, mesh)
 
     def rows(batch: TrainBatch) -> TrainBatch:
         return TrainBatch(*(
@@ -282,7 +294,7 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
         barrier()
 
     def barrier() -> None:
-        if shard is not None:
+        if mesh is not None:
             dist.barrier()
 
     generator = torch.Generator(device)
@@ -293,8 +305,7 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
         # reference's fold_in(step_rng, step): a resumed run draws what an
         # uninterrupted one would, and every rank draws the same
         generator.manual_seed(mix_seed(config.seed + 1, step_num))
-        state, metrics = train_step(state, batch, generator=generator,
-                                    shard=shard)
+        state, metrics = train_step(state, batch, generator=generator)
         if (step_num + 1) % args.log_every == 0:
             vals = {k: float(f"{float(v):.7g}") for k, v in metrics.items()}
             rate = (step_num + 1 - start_step) / (time.time() - t_start)
@@ -311,10 +322,10 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
     if final_step % args.checkpoint_every != 0:
         checkpoint(ckpt_dir / str(final_step), "Final checkpoint")
 
-    if shard is not None:
+    if mesh is not None:
         # replicas that stepped identically hold identical parameters:
         # each rank logs a digest of its own, so a divergence shows
-        _LOGGER.info("Final parameter digest (rank %d): %s", shard.rank,
+        _LOGGER.info("Final parameter digest (rank %d): %s", rank,
                      params_digest(state))
 
     if args.export:

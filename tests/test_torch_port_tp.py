@@ -489,6 +489,7 @@ def test_global_mesh_shapes_match_the_reference(monkeypatch, tp, dp_outer):
         f"cuda:{d.id}" for d in want.devices.ravel()
     ]
     assert len(mesh.local_rows()) == mesh.shape["dp"]
+    assert all(row.column is None for row in mesh.local_rows())
 
 
 @pytest.mark.parametrize("dp_outer", [1, 3])
@@ -501,12 +502,29 @@ def test_dp_outer_other_than_the_ranks_raises(monkeypatch, dp_outer):
         make_global_mesh(dp_outer=dp_outer, device="cpu")
 
 
-def test_tp_row_across_processes_raises(monkeypatch):
-    monkeypatch.setattr(distributed, "_world", lambda: (0, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_global_mesh(tp=2, device="cpu")
+@pytest.mark.parametrize("rank,world,tp", [(0, 2, 3), (1, 3, 2)])
+def test_tp_that_does_not_divide_the_ranks_raises(monkeypatch, rank, world,
+                                                  tp):
+    """Over several processes of one device each every rank sits in one
+    tp row: a tp that does not divide the ranks raises before any group
+    is made."""
+    monkeypatch.setattr(distributed, "_world", lambda: (rank, world))
+    with pytest.raises(ValueError, match="does not divide"):
+        make_global_mesh(tp=tp, device="cpu")
+
+
+def test_local_rows_of_a_row_across_processes():
+    """A row that spans processes is each rank's row at its own column; a
+    rank the mesh does not hold, or one holding part of a row, raises."""
     cpu = torch.device("cpu")
-    mesh = Mesh(np.array([[cpu, cpu]], dtype=object),
-                np.array([[0, 1]], np.int64), process_index=0)
-    with pytest.raises(NotImplementedError, match="spans processes"):
-        mesh.local_rows()
+    grid = np.array([[cpu, cpu], [cpu, cpu]], dtype=object)
+    owners = np.array([[0, 1], [2, 3]], np.int64)
+    for rank in range(4):
+        mesh = Mesh(grid, owners, process_index=rank)
+        assert mesh.local_rows() == [(rank // 2, (cpu,), rank % 2)]
+        assert mesh.local_shards() == [(rank // 2, cpu)]
+    with pytest.raises(ValueError, match="holds no device"):
+        Mesh(grid, owners, process_index=4).local_rows()
+    three = np.array([[cpu, cpu, cpu]], dtype=object)
+    with pytest.raises(ValueError, match="holds 2 of dp row 0"):
+        Mesh(three, np.array([[0, 0, 1]], np.int64)).local_rows()
