@@ -52,7 +52,18 @@ just before it and read just after:
   ``torch.distributed.run`` over ``make_global_mesh(tp=2)``, two gloo
   ranks on one card or dp 2 x tp 2 over NCCL on four: serving against one
   device, the time in the row's collectives, and train steps against one
-  process with the ranks' parameters compared.
+  process with the ranks' parameters compared;
+- the teacher -> student round trip
+  (``python -m mimic3_tpu_torch.scripts.train_roundtrip``) at a cut depth:
+  training and export, held-out sentences and a deterministic double-run
+  through the CLI (byte-equal across processes), then the student in
+  process through the engine, byte-equal to the CLI and launching the f32
+  stage kernel;
+- the two-phase server SLO load test
+  (``python -m mimic3_tpu_torch.scripts.serve_load_test``) at the
+  reference's traffic on the full-width voice: no signature first run on
+  the hot path, mean batch above 1, first-chunk latency at 1/4/16
+  streamers (its launches, in the server's process, are not counted).
 
     python3 chip_smoke.py
 
@@ -66,7 +77,9 @@ network, no JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import ast
 import gc
+import hashlib
 import io
 import json
 import logging
@@ -1051,8 +1064,9 @@ def onnx_path(root):
 
 def mbistft_path(root, voice_dir, card_line):
     """An MB-iSTFT voice (phase 13): card against the port's own CPU
-    output, bf16 against f32, no stage launch, and its time in turns with
-    the HiFi-GAN voice.  Returns the stage launches (0)."""
+    output, two deterministic calls bitwise equal, bf16 against f32, no
+    stage launch, and its time in turns with the HiFi-GAN voice.  Returns
+    the stage launches (0)."""
     from mimic3_tpu_torch.ops import stage
     from mimic3_tpu_torch.runtime.testvoice import create_test_voice
     from mimic3_tpu_torch.runtime.voice import load_from_directory
@@ -1067,6 +1081,8 @@ def mbistft_path(root, voice_dir, card_line):
     ids = phoneme_ids(card_det, TEXT)
     batch_ids = [phoneme_ids(card_det, t) for t in BATCH_TEXTS]
     got = card_det.session.synthesize_ids(ids, noise_scale=0.0, noise_w=0.0)
+    again = card_det.session.synthesize_ids(ids, noise_scale=0.0,
+                                            noise_w=0.0)
     want = cpu_det.session.synthesize_ids(ids, noise_scale=0.0, noise_w=0.0)
     c_cpu = corr(got, want) if got.size == want.size else None
     bf16 = load_from_directory(mb_dir).session.synthesize_ids_batch(
@@ -1076,11 +1092,15 @@ def mbistft_path(root, voice_dir, card_line):
     same = [a.size for a in bf16] == [a.size for a in f32]
     c_bf16 = min(corr(a, b) for a, b in zip(bf16, f32)) if same else None
     launches = stage.launches
+    repeat = got.tobytes() == again.tobytes()
     say("mbistft", f"full-width MB-iSTFT voice: deterministic card vs CPU "
-        f"{got.size} / {want.size} samples, corr {c_cpu}; bf16 vs f32 "
+        f"{got.size} / {want.size} samples, corr {c_cpu}; two deterministic "
+        f"card calls {'bitwise equal' if repeat else 'DIFFER'}; bf16 vs f32 "
         f"decoder, batch of 4, min corr {c_bf16}; {launches} stage launches")
     if c_cpu is None or not c_cpu >= 0.999:
         raise AssertionError("MB-iSTFT on the card disagrees with the CPU")
+    if not repeat:
+        raise AssertionError("two deterministic MB-iSTFT calls differ")
     if c_bf16 is None or not c_bf16 > 0.99:
         raise AssertionError("MB-iSTFT bf16 strays from its f32 decoder")
     if launches != 0:
@@ -2346,6 +2366,154 @@ def tp_mp_worker(work: Path) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# the end-to-end proofs: the teacher -> student round trip, the server SLO
+# ---------------------------------------------------------------------------
+
+# [roundtrip]'s depth: two milestones (the second resumes from the first's
+# checkpoint), two held-out sentences; the reference protocol's student,
+# batch and data otherwise
+ROUNDTRIP_EVAL_AT = "100,200"
+ROUNDTRIP_HELDOUT = 2
+ROUNDTRIP_TRAIN = 72  # the script's default --n-train
+# the trainer's log line: step N {metrics} (R steps/s)
+TRAIN_LOG = re.compile(r"step (\d+) (\{[^}]*\}) \(([\d.]+) steps/s\)")
+
+
+def roundtrip_path(root: Path, card_line: str) -> int:
+    """The port's teacher -> student round trip on the card (phase 20):
+    ``python -m mimic3_tpu_torch.scripts.train_roundtrip`` in its own
+    process at ``ROUNDTRIP_EVAL_AT`` (training through mimic3-torch-train,
+    export, the held-out sentences and the deterministic double-run
+    through the CLI, one process each); then the exported student in
+    process through the engine, deterministic, against a third CLI
+    process's WAV.  At the last milestone every held-out sentence must
+    correlate with the teacher better than unrelated text does (the
+    baseline); the reference's 0.72 bar on the mean is for its 3000
+    steps.  Returns the stage launches of the in-process call."""
+    from mimic3_tpu_torch.engine import Mimic3Settings, Mimic3TextToSpeechSystem
+    from mimic3_tpu_torch.ops import stage
+    from mimic3_tpu_torch.runtime.voice import load_from_directory
+    from mimic3_tpu_torch.scripts.train_roundtrip import _texts, synth_cli
+
+    work = root / "roundtrip"
+    t0 = time.perf_counter()
+    rc, out = run_group(
+        [sys.executable, "-m", "mimic3_tpu_torch.scripts.train_roundtrip",
+         "--eval-at", ROUNDTRIP_EVAL_AT, "--n-heldout",
+         str(ROUNDTRIP_HELDOUT), "--threshold", "-1", "--workdir",
+         str(work), "--keep", "--device", "cuda"],
+        timeout=900,
+    )
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"train_roundtrip failed (rc={rc}):\n"
+                             f"{out[-3000:]}")
+    result = next(json.loads(line) for line in reversed(out.splitlines())
+                  if line.startswith('{"steps"') and "curve" in line)
+    logged = [(int(m[1]), ast.literal_eval(m[2]), float(m[3]))
+              for m in TRAIN_LOG.finditer(out)]
+    voices = work / "voices"
+    student = voices / "en_US" / "student_low"
+    milestones = [int(s) for s in ROUNDTRIP_EVAL_AT.split(",")]
+    if not (student / "generator.npz").is_file():
+        raise AssertionError("the round trip exported no generator.npz")
+    if [p["steps"] for p in result["curve"]] != milestones:
+        raise AssertionError(f"curve points {result['curve']}")
+    if not result["deterministic_hash"]:
+        raise AssertionError("two CLI processes gave different WAVs")
+    if [s for s, _, _ in logged] != milestones:
+        raise AssertionError(f"trainer log steps {[s for s, _, _ in logged]}")
+    for point in result["curve"]:
+        say("roundtrip", f"{point['steps']} steps: held-out mel corr "
+            f"{point['mean_corr']} mean / {point['min_corr']} min over "
+            f"{ROUNDTRIP_HELDOUT} sentences (CLI on the card), unrelated-"
+            f"text baseline {result['baseline_cross_corr']}")
+    if not result["curve"][-1]["min_corr"] > result["baseline_cross_corr"]:
+        raise AssertionError("a held-out sentence is no closer to the "
+                             "teacher than unrelated text")
+    say("roundtrip", f"loss_mel step {logged[0][0]} "
+        f"{logged[0][1]['loss_mel']:.4f} -> step {logged[-1][0]} "
+        f"{logged[-1][1]['loss_mel']:.4f}; "
+        + ", ".join(f"{r:.2f} steps/s to step {s}" for s, _, r in logged)
+        + f" (batch 8, {card_line}); two CLI processes byte-equal "
+        f"(sha256 {result['sha256_heldout0'][:16]}); phase wall {wall:.1f} s")
+
+    # the exported student in process, as the CLI runs it
+    text = _texts(ROUNDTRIP_TRAIN + ROUNDTRIP_HELDOUT)[ROUNDTRIP_TRAIN]
+    tts = Mimic3TextToSpeechSystem(Mimic3Settings(
+        voices_directories=[str(voices)], use_deterministic_compute=True,
+        noise_scale=0.0, noise_w=0.0, seed=0,
+    ), device="cuda")
+    tts.voice = "en_US/student_low"
+    stage.launches = 0
+    wav = tts.text_to_wav(text)
+    launches = stage.launches
+    fused = sorted(load_from_directory(
+        student, deterministic=True).session.stage_weights)
+    width = json.loads((student / "config.json").read_text())["model"][
+        "upsample_initial_channel"]
+    _, cli_wav = synth_cli(voices, "en_US/student_low", text)
+    same_cli = hashlib.sha256(cli_wav).hexdigest() == result["sha256_heldout0"]
+    lsb = int(np.abs(parse_wav(wav).astype(np.int32)
+                     - parse_wav(cli_wav).astype(np.int32)).max())
+    say("roundtrip", f"in-process engine WAV "
+        f"{'byte-equal to' if wav == cli_wav else 'DIFFERS from'} the "
+        f"CLI's ({len(wav)} bytes, max {lsb} LSB); a third CLI process "
+        f"{'equal to' if same_cli else 'DIFFERS from'} the double-run; "
+        f"f32 stage launches {launches}, fused stages at C = "
+        f"{[width >> (i + 1) for i in fused]} (TF32 from 16, FFMA at 8)")
+    if wav != cli_wav or not same_cli:
+        raise AssertionError("the in-process student WAV differs from the "
+                             "CLI's")
+    if launches < 1:
+        raise AssertionError("the student's synthesis launched no stage "
+                             "kernel")
+    return launches
+
+
+def serve_load_path(card_line: str) -> None:
+    """The port's two-phase server SLO load test on the card (phase 21):
+    ``python -m mimic3_tpu_torch.scripts.serve_load_test`` at the
+    reference's traffic (48 /api/tts requests at concurrency 16, first
+    chunks at 1/4/16 streamers) against ``python -m
+    mimic3_tpu_torch.server`` subprocesses on the full-width voice, the
+    second warmed from the first's traffic profile.  Every WAV parses at
+    22050 Hz (the script fails otherwise), no signature is first run on
+    the hot path, and the scheduler batches (mean batch above 1).  The
+    kernel runs in the server's process, where this script cannot count
+    it: returns None."""
+    t0 = time.perf_counter()
+    rc, out = run_group(
+        [sys.executable, "-m", "mimic3_tpu_torch.scripts.serve_load_test",
+         "--device", "cuda"],
+        timeout=900,
+    )
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"serve_load_test failed (rc={rc}):\n"
+                             f"{out[-3000:]}")
+    result = next(json.loads(line) for line in reversed(out.splitlines())
+                  if line.startswith('{"requests"'))
+    lat = result["first_chunk_latency"]
+    say("serve_load", f"{result['requests']} requests at concurrency "
+        f"{result['concurrency']}: {result['served_audio_sec_per_sec']} "
+        f"audio-s/s ({result['audio_sec_total']} s of audio in "
+        f"{result['wall_s']} s), mean batch {result['mean_batch_size']:.3f} "
+        f"over {result['batches']} batches, batch buckets "
+        f"{result['batch_bucket_histogram']}; first chunk p50/p99 "
+        + ", ".join(f"{k}: {v['p50_ms']}/{v['p99_ms']} ms"
+                    for k, v in lat.items())
+        + f"; warmup {result['warmup_wall_s']} s (profiled); hot-path "
+        f"signatures {result['hot_path_compiles']} ({card_line}); phase "
+        f"wall {wall:.1f} s")
+    if result["requests"] != 48 or result["hot_path_compiles"] != 0:
+        raise AssertionError("signatures first run on the hot path")
+    if not result["mean_batch_size"] > 1:
+        raise AssertionError("the scheduler never batched requests")
+    return None
+
+
 def host_probe(after: str, n: int = 4000) -> None:
     """The host's state after a phase: wall microseconds per tiny CUDA op
     (an add to a 1-element tensor, queued back to back), the Python
@@ -2508,7 +2676,7 @@ def main() -> int:
         for dtype in (torch.float32, torch.bfloat16)
     }
 
-    # -- 5-14. the paths -------------------------------------------------------------
+    # -- 5-21. the paths -------------------------------------------------------------
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         t0 = time.perf_counter()
@@ -2533,6 +2701,8 @@ def main() -> int:
         launches["tp_train"], one_losses = tp_train_path(root, card_line)
         launches["tp_mp"] = tp_mp_path(root, voice_dir, card_line,
                                        one_losses)
+        launches["roundtrip"] = roundtrip_path(root, card_line)
+        launches["serve_load"] = serve_load_path(card_line)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2541,7 +2711,8 @@ def main() -> int:
     rows = []
     for module, name, source, replaces, n, row, f32_row in (
         (stage, "hifigan_stage_fused", "stage.cu", "stage.py:399",
-         sum(launches.values()), stage_results[(32, 128, 1, torch.bfloat16)],
+         sum(n for n in launches.values() if n is not None),
+         stage_results[(32, 128, 1, torch.bfloat16)],
          stage_results[(32, 128, 1, torch.float32)]),
         (resblock, "fused_resblock_subblock", "resblock.cu",
          "resblock.py:136", res_launches, res_results[torch.bfloat16],
@@ -2572,6 +2743,8 @@ def main() -> int:
             "f32_stage_gate": gates[torch.float32],
         })
     rows[0]["launches_by_path"] = launches
+    # null counts: the kernel ran in a process this script cannot read
+    rows[0]["launches_not_counted"] = {"serve_load": "server subprocess"}
     rows[0]["bf16_stage_gate"] = gates[torch.bfloat16]
     rows[0]["f32_launches_per_deterministic_call"] = det_launches
     print(json.dumps({"kernels": rows}), flush=True)

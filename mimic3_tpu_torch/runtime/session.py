@@ -409,42 +409,70 @@ def resolve_device(
 STAGE_MAX_CHANNELS = {torch.float32: 32, torch.bfloat16: 64}
 
 
-_F32_LOCK = threading.Lock()
-_F32_USERS = 0
-_F32_PREVIOUS = True
+class _SharedCudnnFlag:
+    """A process-wide ``torch.backends.cudnn`` flag held at one value while
+    any user is inside :meth:`held`.  Sessions run on several threads
+    (request workers, the scheduler, continuation drivers): the first of
+    overlapping users sets the flag and the last restores the previous
+    value."""
+
+    def __init__(self, name: str, value: bool):
+        self._name = name
+        self._value = value
+        self._lock = threading.Lock()
+        self._users = 0
+        self._previous = value
+
+    @contextlib.contextmanager
+    def held(self) -> typing.Iterator[None]:
+        with self._lock:
+            if self._users == 0:
+                self._previous = getattr(torch.backends.cudnn, self._name)
+                setattr(torch.backends.cudnn, self._name, self._value)
+            self._users += 1
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._users -= 1
+                if self._users == 0:
+                    setattr(torch.backends.cudnn, self._name, self._previous)
 
 
-@contextlib.contextmanager
-def full_f32_convolutions() -> typing.Iterator[None]:
+_NO_TF32 = _SharedCudnnFlag("allow_tf32", False)
+_DETERMINISTIC_ALGORITHMS = _SharedCudnnFlag("deterministic", True)
+
+
+def full_f32_convolutions() -> typing.ContextManager[None]:
     """Run float32 convolutions in float32.
 
     cuDNN computes them in TF32 by default (about three decimal digits),
     which would move the encoder's and duration predictor's outputs away
     from the reference; the decoder's speed path is its bf16 dtype.
-    The flag is process-wide and sessions run on several threads (request
-    workers, the scheduler, continuation drivers): the first of
-    overlapping users turns TF32 off and the last restores it.
     """
-    global _F32_USERS, _F32_PREVIOUS
-    with _F32_LOCK:
-        if _F32_USERS == 0:
-            _F32_PREVIOUS = torch.backends.cudnn.allow_tf32
-            torch.backends.cudnn.allow_tf32 = False
-        _F32_USERS += 1
-    try:
-        yield
-    finally:
-        with _F32_LOCK:
-            _F32_USERS -= 1
-            if _F32_USERS == 0:
-                torch.backends.cudnn.allow_tf32 = _F32_PREVIOUS
+    return _NO_TF32.held()
+
+
+def deterministic_convolutions() -> typing.ContextManager[None]:
+    """Let cuDNN pick only algorithms that give the same bits every run.
+
+    Its heuristics otherwise pick, for some transposed-convolution shapes
+    (MB-iSTFT's first upsampler), an algorithm that accumulates with
+    atomics, so two deterministic calls can differ in their last bits,
+    and then in the WAV's bytes.
+    """
+    return _DETERMINISTIC_ALGORITHMS.held()
 
 
 @contextlib.contextmanager
-def device_work() -> typing.Iterator[None]:
+def device_work(deterministic: bool = False) -> typing.Iterator[None]:
     """One device call: tracked as in flight, autograd off (per thread),
-    float32 convolutions in float32."""
-    with _device_call(), torch.inference_mode(), full_f32_convolutions():
+    float32 convolutions in float32, and with ``deterministic`` only
+    deterministic cuDNN algorithms."""
+    with _device_call(), torch.inference_mode(), full_f32_convolutions(), (
+        deterministic_convolutions() if deterministic
+        else contextlib.nullcontext()
+    ):
         yield
 
 
@@ -606,7 +634,7 @@ class _ContinuationDriver:
                     hit_key("chunk", ids.shape[0], ids.shape[1], window)
                 )
                 # inference mode is per thread: device_work enters it here
-                with device_work():
+                with device_work(session.deterministic):
                     audio, _ = session.model.decode_frames(
                         session.params, ids, lengths, durations, window,
                         self._seed, self._noise_scale, sid=sid,
@@ -1073,7 +1101,7 @@ class TorchVitsSession:
         if not self.allow_bucket_growth:
             max_frames_cap = min(max_frames_cap, self.frame_buckets[-1])
 
-        with device_work():
+        with device_work(self.deterministic):
             # the duration pass per shard, each on its replica's device
             shards = []
             waits = []
@@ -1376,7 +1404,7 @@ class TorchVitsSession:
         )
         b_bucket, t_bucket = ids.shape
         call_seed = self._next_seed(seed)
-        with device_work():
+        with device_work(self.deterministic):
             ids_t, lengths_t, sid_t = (
                 self._put(ids), self._put(lengths), self._sid(sid)
             )
@@ -1496,7 +1524,7 @@ class TorchVitsSession:
                 # (truncation invalidates the batched first window: its
                 # durations predate the cap)
                 self._note_run(hit_key("chunk", 1, ids_row.shape[1], window))
-                with device_work():
+                with device_work(self.deterministic):
                     i_t, l_t, s_t, d_t, m_t, lg_t = row_tensors()
                     audio, _ = self.model.decode_frames(
                         self.params, i_t, l_t, d_t, window, seed,
@@ -1583,7 +1611,7 @@ class TorchVitsSession:
                     continue
                 if graceful_shutdown_requested():
                     break
-                with device_work():
+                with device_work(self.deterministic):
                     for rep in replicas:
                         ids, lengths, sid = inputs(b // self.dp, t, rep.device)
                         durations, _ = self.model.infer_durations(
@@ -1620,7 +1648,7 @@ class TorchVitsSession:
                         continue
                     if graceful_shutdown_requested():
                         break
-                    with device_work():
+                    with device_work(self.deterministic):
                         ids, lengths, sid = inputs(b, t)
                         durations, _, m_p, logs_p, _ = self.model.stream_start(
                             self.params, ids, lengths, 0, 1.0, 0.8, 0.667,

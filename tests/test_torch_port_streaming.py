@@ -351,3 +351,33 @@ def test_full_f32_convolutions_is_shared_across_threads():
         assert torch.backends.cudnn.allow_tf32 is True
     finally:
         torch.backends.cudnn.allow_tf32 = previous
+
+
+@pytest.mark.parametrize("deterministic", [True, False])
+def test_deterministic_session_holds_deterministic_cudnn(voice, deterministic):
+    """cuDNN's heuristics pick an algorithm that accumulates with atomics
+    for some transposed convolutions (MB-iSTFT's upsamplers on the card),
+    so a deterministic session's device calls, the duration pass and the
+    decode alike, hold ``cudnn.deterministic``; a default session's leave
+    it as it was, and it is restored after the call."""
+    config, params = voice
+    port = TorchVitsSession(config, params, deterministic=deterministic,
+                            device="cpu")
+    seen = []
+
+    def recording(fn):
+        def call(*args, **kwargs):
+            seen.append(torch.backends.cudnn.deterministic)
+            return fn(*args, **kwargs)
+        return call
+
+    port.model.infer_durations = recording(port.model.infer_durations)
+    port.model.decode_frames = recording(port.model.decode_frames)
+    previous = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = False
+    try:
+        port.synthesize_ids([1, 2, 3, 4, 5], noise_scale=0.0, noise_w=0.0)
+        assert len(seen) == 2 and set(seen) == {deterministic}
+        assert torch.backends.cudnn.deterministic is False
+    finally:
+        torch.backends.cudnn.deterministic = previous
