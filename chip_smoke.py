@@ -63,7 +63,11 @@ just before it and read just after:
   (``python -m mimic3_tpu_torch.scripts.serve_load_test``) at the
   reference's traffic on the full-width voice: no signature first run on
   the hot path, mean batch above 1, first-chunk latency at 1/4/16
-  streamers (its launches, in the server's process, are not counted).
+  streamers (its launches, in the server's process, are not counted);
+- the bench (``python -m mimic3_tpu_torch.scripts.bench``) at its
+  defaults with its timed loops cut short: batch 16 x 1024 frames, its
+  output check, whole-call MFU share and stage kernel A/B (its launches
+  are counted in its process and read from its result line).
 
     python3 chip_smoke.py
 
@@ -78,6 +82,7 @@ network, no JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import ast
+import contextlib
 import gc
 import hashlib
 import io
@@ -148,15 +153,6 @@ PEAK_BYTES = 3.35e12
 
 def say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
-
-
-def card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, iters: int = 20) -> float:
@@ -2022,12 +2018,30 @@ def train_inputs(root: Path):
     return voice_dir, config, params, disc, utts
 
 
+@contextlib.contextmanager
+def deterministic_kernels() -> typing.Iterator[None]:
+    """Only deterministic card kernels while held (a warning where an op
+    has none).  The tp train runs are held against one device's: cuDNN's
+    default weight-gradient algorithms accumulate with atomics, so two
+    runs of one device differ by a spread of their own, which the
+    comparison would read as the split's."""
+    previous = (torch.are_deterministic_algorithms_enabled(),
+                torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(previous[0],
+                                           warn_only=previous[1])
+
+
 def run_steps(state, config, utts, device, local=None):
     """``TP_TRAIN_STEPS`` steps of ``state`` as ``mimic3-torch-train``
     takes them (the seeded batch stream of ``TRAIN_BATCH`` rows, this
     process's ``local`` (start, size) of each, each step's generator
-    seeded from (seed, step)).  Returns (each step's losses, each step's
-    host ms, ending in a fetch of its losses)."""
+    seeded from (seed, step)), under :func:`deterministic_kernels`.
+    Returns (each step's losses, each step's host ms, ending in a fetch
+    of its losses)."""
     from mimic3_tpu_torch.models.vits import train as T
     from mimic3_tpu_torch.models.vits.model import mix_seed
     from mimic3_tpu_torch.runtime.dataset import batches
@@ -2046,7 +2060,8 @@ def run_steps(state, config, utts, device, local=None):
         gen.manual_seed(mix_seed(config.seed + 1, i))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, metrics = step(state, batch, generator=gen)
+        with deterministic_kernels():
+            state, metrics = step(state, batch, generator=gen)
         losses.append({k: float(v) for k, v in metrics.items()})
         times.append((time.perf_counter() - t0) * 1000)
     return losses, times
@@ -2136,8 +2151,9 @@ def tp_train_path(root: Path, card_line: str):
     say("tp_train", f"phase wall {time.perf_counter() - t_phase:.1f} s")
     if not (rel[0] <= DP_STEP1_RTOL
             and all(r <= DP_LATER_RTOL for r in rel[1:])):
-        raise AssertionError("the tp train step's losses disagree with one "
-                             "device")
+        raise AssertionError(f"the tp train step's losses disagree with one "
+                             f"device: max rel diff per step {rel}; tp "
+                             f"{tp_losses}; one device {one_losses}")
     if not drift <= bound:
         raise AssertionError("the tp-trained parameters stray from one "
                              "device's")
@@ -2253,8 +2269,8 @@ def tp_mp_path(root: Path, voice_dir: Path, card_line: str, one_losses):
         raise AssertionError("the ranks logged different losses")
     if not (rel[0] <= DP_STEP1_RTOL
             and all(r <= DP_LATER_RTOL for r in rel[1:])):
-        raise AssertionError("tp across processes: losses disagree with one "
-                             "process")
+        raise AssertionError(f"tp across processes: losses disagree with one "
+                             f"process: max rel diff per step {rel}")
     if differ or not split:
         raise AssertionError(f"ranks differ on {differ[:5]}")
     n = sum(x["launches"] for x in outs)
@@ -2487,7 +2503,7 @@ def serve_load_path(card_line: str) -> None:
     rc, out = run_group(
         [sys.executable, "-m", "mimic3_tpu_torch.scripts.serve_load_test",
          "--device", "cuda"],
-        timeout=900,
+        timeout=300,
     )
     wall = time.perf_counter() - t0
     if rc != 0:
@@ -2509,9 +2525,70 @@ def serve_load_path(card_line: str) -> None:
         f"wall {wall:.1f} s")
     if result["requests"] != 48 or result["hot_path_compiles"] != 0:
         raise AssertionError("signatures first run on the hot path")
+    if result["card"] != card_line:
+        raise AssertionError(f"the load test's line names {result['card']!r}")
     if not result["mean_batch_size"] > 1:
         raise AssertionError("the scheduler never batched requests")
     return None
+
+
+# the bench's run in the smoke: its defaults, the timed loops cut short
+BENCH_ITERS = 5
+BENCH_WARMUP = 2
+
+
+def bench_path(card_line: str) -> int:
+    """The port's bench on the card (phase 22): ``python -m
+    mimic3_tpu_torch.scripts.bench --iters 5 --warmup 2`` in its own
+    process, its other flags at their defaults (HiFi-GAN ``*_low``, bf16
+    decoder, stage gate at the session's, B = 16 x 128 phonemes -> 1024
+    frames; the batch-32, throughput-mode and single-stream points beside
+    it).  Prints its result line, then fails unless its outputs are correct,
+    its throughput is above 0, its whole-call MFU share lies in (0, 1.05],
+    the stage kernel launched at least once per call and both sides of its
+    stage A/B are present.  Returns the stage launches of its timed
+    headline calls, counted in its process."""
+    t0 = time.perf_counter()
+    rc, out = run_group(
+        [sys.executable, "-m", "mimic3_tpu_torch.scripts.bench", "--iters",
+         str(BENCH_ITERS), "--warmup", str(BENCH_WARMUP)],
+        timeout=300,
+    )
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"the bench failed (rc={rc}):\n{out[-3000:]}")
+    result = next(json.loads(line) for line in reversed(out.splitlines())
+                  if line.startswith('{"metric"'))
+    print(json.dumps(result), flush=True)
+    extra = result["extra"]
+    ab = extra["stage_kernel_ab"]
+    say("bench", f"{result['metric']}: {result['value']:.1f} "
+        f"{result['unit']} per call, wall {extra['wall_ms']['median']:.2f} "
+        f"ms per call (median of {extra['wall_ms']['n']}), device "
+        f"{extra['decode_ms_device']:.2f} ms, idle share "
+        f"{extra['idle_share']:.3f}, MFU {extra['mfu_vs_bf16_peak']:.4f} "
+        f"whole call / {extra['mfu_device_vs_bf16_peak']:.4f} device "
+        f"({extra['flops_per_pipeline'] / 1e12:.3f} TFLOP per call); stage "
+        f"A/B wall {ab['kernel']['wall_ms']['median']:.2f} vs "
+        f"{ab['plain']['wall_ms']['median']:.2f} ms, device "
+        f"{ab['kernel']['device_ms']['median']:.2f} vs "
+        f"{ab['plain']['device_ms']['median']:.2f} ms, "
+        f"{ab['kernel']['stage_launches_per_call']:g} launches per call; "
+        f"correct {extra['correct']} ({extra['card']}); phase wall "
+        f"{wall:.1f} s")
+    if extra["correct"] is not True:
+        raise AssertionError(f"the bench's outputs: {extra['checks']}")
+    if not result["value"] > 0:
+        raise AssertionError("the bench measured no throughput")
+    if not 0 < extra["mfu_vs_bf16_peak"] <= 1.05:
+        raise AssertionError(
+            f"whole-call MFU share {extra['mfu_vs_bf16_peak']}")
+    if not extra["stage_launches_per_call"] >= 1:
+        raise AssertionError("the bench's calls launched no stage kernel")
+    if any(ab[side]["wall_ms"]["n"] < 1 or ab[side]["device_ms"] is None
+           for side in ("kernel", "plain")):
+        raise AssertionError(f"a side of the stage A/B is missing: {ab}")
+    return round(extra["stage_launches_per_call"] * extra["iters"])
 
 
 def host_probe(after: str, n: int = 4000) -> None:
@@ -2547,6 +2624,7 @@ def main() -> int:
         raise RuntimeError("no CUDA device visible: this smoke run needs one")
     from mimic3_tpu_torch.ops import build, resblock, stage
     from mimic3_tpu_torch.runtime.session import STAGE_MAX_CHANNELS
+    from mimic3_tpu_torch.scripts.bench import card_line as card
 
     card_line = card()
     nvcc = subprocess.run(
@@ -2676,7 +2754,7 @@ def main() -> int:
         for dtype in (torch.float32, torch.bfloat16)
     }
 
-    # -- 5-21. the paths -------------------------------------------------------------
+    # -- 5-22. the paths -------------------------------------------------------------
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         t0 = time.perf_counter()
@@ -2703,6 +2781,7 @@ def main() -> int:
                                        one_losses)
         launches["roundtrip"] = roundtrip_path(root, card_line)
         launches["serve_load"] = serve_load_path(card_line)
+        launches["bench"] = bench_path(card_line)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2745,6 +2824,8 @@ def main() -> int:
     rows[0]["launches_by_path"] = launches
     # null counts: the kernel ran in a process this script cannot read
     rows[0]["launches_not_counted"] = {"serve_load": "server subprocess"}
+    # the bench's count, read from its process: its timed headline calls
+    rows[0]["launches_counted_in_subprocess"] = ["bench"]
     rows[0]["bf16_stage_gate"] = gates[torch.bfloat16]
     rows[0]["f32_launches_per_deterministic_call"] = det_launches
     print(json.dumps({"kernels": rows}), flush=True)

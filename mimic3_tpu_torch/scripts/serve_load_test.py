@@ -288,6 +288,7 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
     args = parser.parse_args(argv)
 
     from ..runtime.session import resolve_device
+    from .bench import card_line
 
     resolve_device(args.device)  # no card: raise before any server
 
@@ -362,6 +363,9 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
                         "full-grid" if args.full_warmup
                         else "profiled"
                     ),
+                    # name and power limit (nvidia-smi) of the servers'
+                    # card; null on the CPU
+                    "card": card_line() if args.device == "cuda" else None,
                 }
             ),
             flush=True,

@@ -85,12 +85,18 @@ def _result(out: str) -> dict:
 
 def test_two_phase_run_has_no_hot_path_signature(cpu_run, capsys):
     assert port.main(["--device", "cpu"]) == 0
-    result = _result(capsys.readouterr().out)
+    out = capsys.readouterr().out
+    result = _result(out)
+    # chip_smoke.py's [serve_load] finds the line by its first key
+    assert result == next(
+        json.loads(line) for line in reversed(out.splitlines())
+        if line.startswith('{"requests"'))
     assert result["hot_path_compiles"] == 0
     assert result["warmup_mode"] == "profiled"
     assert result["requests"] == 8 and result["audio_sec_total"] > 0
     assert result["mean_batch_size"] >= 1
     assert set(result["first_chunk_latency"]) == {"c1", "c2"}
+    assert result["card"] is None  # no card's name under a CPU run
 
 
 def test_missing_profile_signature_exits_1_and_names_it(cpu_run, capsys):
