@@ -30,6 +30,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from ... import tracing
 from ...config import ModelConfig
 from ...parallel import tensor as tp
 from . import duration as dur
@@ -149,15 +150,16 @@ def indexed_noise(
     so a value depends only on (seed, stream, position, channel) and is
     the same on every device.
     """
-    first = start // NOISE_CHUNK
-    last = (start + max(count, 1) - 1) // NOISE_CHUNK
-    gen = torch.Generator()
-    chunks = []
-    for chunk in range(first, last + 1):
-        gen.manual_seed(mix_seed(seed, stream, chunk))
-        chunks.append(torch.randn(NOISE_CHUNK, channels, generator=gen))
-    offset = start - first * NOISE_CHUNK
-    return torch.cat(chunks)[offset : offset + count]
+    with tracing.span("model.noise", count=count, channels=channels):
+        first = start // NOISE_CHUNK
+        last = (start + max(count, 1) - 1) // NOISE_CHUNK
+        gen = torch.Generator()
+        chunks = []
+        for chunk in range(first, last + 1):
+            gen.manual_seed(mix_seed(seed, stream, chunk))
+            chunks.append(torch.randn(NOISE_CHUNK, channels, generator=gen))
+        offset = start - first * NOISE_CHUNK
+        return torch.cat(chunks)[offset : offset + count]
 
 
 def upload(t: torch.Tensor, device: torch.device) -> torch.Tensor:

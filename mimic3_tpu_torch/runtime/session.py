@@ -25,7 +25,9 @@ Every device call runs inside the host-side ``_device_call`` tracker, so
 and float32 convolutions in float32.  The tracker, the kill-safe SIGTERM,
 ``SessionStats``, ``hit_key``, ``expand_profile_batches`` and
 ``pick_bucket`` are port copies of those in
-``mimic3_tpu/runtime/session.py``.
+``mimic3_tpu/runtime/session.py``.  Each unsplit call and each
+continuation window records the ``session.*`` spans of
+:mod:`mimic3_tpu_torch.tracing` while a profiler records.
 
 With ``mesh`` (``parallel.make_mesh``) the batch path runs data
 parallel, the counterpart of the reference's dp mesh: each dp replica
@@ -61,6 +63,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import TrainingConfig
 from ..models.vits.model import VitsModel, mix_seed
 from ..parallel import Mesh, all_gather_rows, batch_sharding, shard_params
@@ -200,10 +203,10 @@ def install_kill_safe_sigterm() -> None:
 
 @dataclass
 class SessionStats:
-    """Rolling synthesis statistics (RTF = infer_sec / audio_sec).
+    """Cumulative synthesis statistics (RTF = infer_sec / audio_sec).
 
     Recorded from scheduler and direct-caller threads and read by
-    /api/stats; all mutation and history reads go through ``_lock``.
+    /api/stats; all mutation goes through ``_lock``.
     """
 
     utterances: int = 0
@@ -211,8 +214,6 @@ class SessionStats:
     audio_sec: float = 0.0
     compile_count: int = 0
     last_rtf: float = 0.0
-    rtf_history: typing.List[float] = field(default_factory=list)
-    latency_history: typing.List[float] = field(default_factory=list)
     executable_hits: typing.Dict[str, int] = field(default_factory=dict)
     bucket_fallbacks: typing.Dict[str, int] = field(default_factory=dict)
     _lock: threading.Lock = field(
@@ -262,27 +263,10 @@ class SessionStats:
             self.last_rtf = (
                 infer_sec / audio_sec if audio_sec > 0 else 0.0
             )
-            self.rtf_history.append(self.last_rtf)
-            self.latency_history.append(infer_sec)
-            if len(self.rtf_history) > 1000:
-                del self.rtf_history[:-1000]
-            if len(self.latency_history) > 1000:
-                del self.latency_history[:-1000]
 
     @property
     def mean_rtf(self) -> float:
         return self.infer_sec / self.audio_sec if self.audio_sec else 0.0
-
-    def latency_percentile(self, pct: float) -> float:
-        """Synthesis-call latency percentile over the recent window."""
-        with self._lock:
-            ordered = sorted(self.latency_history)
-        if not ordered:
-            return 0.0
-        idx = min(
-            len(ordered) - 1, int(pct / 100.0 * len(ordered))
-        )
-        return ordered[idx]
 
 
 def hit_key(
@@ -635,13 +619,17 @@ class _ContinuationDriver:
                 )
                 # inference mode is per thread: device_work enters it here
                 with device_work(session.deterministic):
-                    audio, _ = session.model.decode_frames(
-                        session.params, ids, lengths, durations, window,
-                        self._seed, self._noise_scale, sid=sid,
-                        frame_offset=start - left, enc_stats=(m_p, logs_p),
-                        stage_weights=session.stage_weights,
-                    )
-                    audio_np = audio.float().cpu().numpy()  # one copy
+                    with tracing.span("session.decode", window=k,
+                                      batch=ids.shape[0]):
+                        audio, _ = session.model.decode_frames(
+                            session.params, ids, lengths, durations, window,
+                            self._seed, self._noise_scale, sid=sid,
+                            frame_offset=start - left,
+                            enc_stats=(m_p, logs_p),
+                            stage_weights=session.stage_weights,
+                        )
+                    with tracing.span("session.audio_to_host"):
+                        audio_np = audio.float().cpu().numpy()  # one copy
                 self.windows_produced += 1
                 for i in rows:
                     valid = min(cf, self._totals[i] - start)
@@ -1093,45 +1081,80 @@ class TorchVitsSession:
                     )
                 )
             return out
-        id_sequences = self._truncate(id_sequences)
-        batch = len(id_sequences)
-        ids, lengths, sid = self._pad(id_sequences, speaker_ids, "duration")
-        b_bucket, t_bucket = ids.shape
-        call_seed = self._next_seed(seed)
-        if not self.allow_bucket_growth:
-            max_frames_cap = min(max_frames_cap, self.frame_buckets[-1])
+        with tracing.span("session.call", batch=len(id_sequences)) as call, \
+                device_work(self.deterministic):
+            results, f_bucket = self._batch_call(
+                call, id_sequences, speaker_ids, float(length_scale),
+                float(noise_scale), float(noise_w), seed, max_frames_cap,
+            )
+        elapsed = time.perf_counter() - start
+        audio_sec = sum(len(a) for a in results) / (
+            self.config.audio.sample_rate
+        )
+        self.stats.record(elapsed, audio_sec)
+        _LOGGER.debug(
+            "RTF: %s (batch=%d, f_bucket=%d)",
+            self.stats.last_rtf, len(results), f_bucket,
+        )
+        return results
 
-        with device_work(self.deterministic):
-            # the duration pass per shard, each on its replica's device
-            shards = []
+    def _batch_call(
+        self,
+        call,
+        id_sequences: typing.Sequence[typing.Sequence[int]],
+        speaker_ids: typing.Optional[typing.Sequence[int]],
+        length_scale: float,
+        noise_scale: float,
+        noise_w: float,
+        seed: typing.Optional[int],
+        max_frames_cap: int,
+    ) -> typing.Tuple[typing.List[np.ndarray], int]:
+        """One unsplit batch call, inside ``call`` (its ``session.call``
+        span) and ``device_work``: the rows' audio and the frame bucket
+        decoded."""
+        with tracing.span("session.prepare"):
+            id_sequences = self._truncate(id_sequences)
+            batch = len(id_sequences)
+            ids, lengths, sid = self._pad(id_sequences, speaker_ids,
+                                          "duration")
+            b_bucket, t_bucket = ids.shape
+            call_seed = self._next_seed(seed)
+            if not self.allow_bucket_growth:
+                max_frames_cap = min(max_frames_cap, self.frame_buckets[-1])
+            # each shard's rows on its replica's device
+            shards = [
+                _ShardCall(rep, self._put(ids[rows], rep.device),
+                           self._put(lengths[rows], rep.device),
+                           self._sid(sid[rows], rep.device), None)
+                for rep, rows in self._shards(b_bucket)
+            ]
+        call.set(t_bucket=t_bucket, seed=call_seed)
+
+        with tracing.span("session.duration"):
             waits = []
-            for rep, rows in self._shards(b_bucket):
-                ids_t = self._put(ids[rows], rep.device)
-                lengths_t = self._put(lengths[rows], rep.device)
-                sid_t = self._sid(sid[rows], rep.device)
-                durations, totals = self.model.infer_durations(
-                    rep.params, ids_t, lengths_t, call_seed,
-                    float(length_scale), float(noise_w), sid=sid_t,
+            for sh in shards:
+                sh.durations, totals = self.model.infer_durations(
+                    sh.replica.params, sh.ids, sh.lengths, call_seed,
+                    length_scale, noise_w, sid=sh.sid,
                 )
-                shards.append(_ShardCall(rep, ids_t, lengths_t, sid_t,
-                                         durations))
                 waits.append(_start_host_copy(totals))
             self._note_run(hit_key("duration", b_bucket, t_bucket))
 
-            def decode(num_frames: int):
-                # every shard at the one frame bucket, on its own device
-                return [
-                    self.model.decode_frames(
-                        sh.replica.params, sh.ids, sh.lengths, sh.durations,
-                        num_frames, call_seed, float(noise_scale),
-                        sid=sh.sid, stage_weights=sh.replica.stage_weights,
-                    )
-                    for sh in shards
-                ]
+        def decode(num_frames: int):
+            # every shard at the one frame bucket, on its own device
+            return [
+                self.model.decode_frames(
+                    sh.replica.params, sh.ids, sh.lengths, sh.durations,
+                    num_frames, call_seed, noise_scale, sid=sh.sid,
+                    stage_weights=sh.replica.stage_weights,
+                )
+                for sh in shards
+            ]
 
-            # speculative decode at a predicted bucket, enqueued before
-            # the host waits for the totals
-            spec_bucket = self._speculative_bucket(
+        # speculative decode at a predicted bucket, enqueued before the
+        # host waits for the totals
+        with tracing.span("session.speculate"):
+            spec_bucket, outcome = self._speculative_bucket(
                 b_bucket, t_bucket, lengths[:batch], length_scale
             )
             spec_result = None
@@ -1143,43 +1166,49 @@ class TorchVitsSession:
                         spec_done.append(torch.cuda.Event())
                         spec_done[-1].record(torch.cuda.current_stream(d))
 
-            # the one host sync: every shard's totals
+        # the one host sync: every shard's totals
+        with tracing.span("session.wait_totals"):
             totals_np = self._all_rows(
                 np.concatenate([wait() for wait in waits])
             )
-            needed = int(totals_np[:batch].max())
-            truncated = needed > max_frames_cap
-            if truncated:
-                _LOGGER.warning(
-                    "Output of %d frames exceeds cap %d; truncating",
-                    needed, max_frames_cap,
-                )
-                needed = max_frames_cap
-                # clamp the durations so sample lengths match the audio
-                for sh in shards:
-                    sh.durations = self._put(
-                        _recap(sh.durations.cpu().numpy(), max_frames_cap),
-                        sh.replica.device,
-                    )
-            f_bucket = pick_bucket(
-                needed, self.frame_buckets, grow=self.allow_bucket_growth
+        needed = int(totals_np[:batch].max())
+        truncated = needed > max_frames_cap
+        if truncated:
+            _LOGGER.warning(
+                "Output of %d frames exceeds cap %d; truncating",
+                needed, max_frames_cap,
             )
-            self._observe_frames(totals_np[:batch], lengths[:batch],
-                                 length_scale)
-            used = (
-                spec_result is not None
-                and spec_bucket >= f_bucket
-                and not truncated
-            )
-            if spec_result is not None:
-                with self._lock:
-                    self.speculation["used" if used else "fell_back"] += 1
-                    if not all(e.query() for e in spec_done):
-                        self.speculation["overlapped"] += 1
-            if used:
-                result = spec_result  # prediction held
-                f_bucket = spec_bucket
-            else:
+            needed = max_frames_cap
+        f_bucket = pick_bucket(
+            needed, self.frame_buckets, grow=self.allow_bucket_growth
+        )
+        self._observe_frames(totals_np[:batch], lengths[:batch],
+                             length_scale)
+        used = (
+            spec_result is not None
+            and spec_bucket >= f_bucket
+            and not truncated
+        )
+        if spec_result is not None:
+            outcome = "used" if used else "fell_back"
+            with self._lock:
+                self.speculation[outcome] += 1
+                if not all(e.query() for e in spec_done):
+                    self.speculation["overlapped"] += 1
+        if used:
+            result = spec_result  # prediction held
+            f_bucket = spec_bucket
+        else:
+            with tracing.span("session.decode"):
+                if truncated:
+                    # clamp the durations so sample lengths match the
+                    # audio
+                    for sh in shards:
+                        sh.durations = self._put(
+                            _recap(sh.durations.cpu().numpy(),
+                                   max_frames_cap),
+                            sh.replica.device,
+                        )
                 # round up to the nearest warmed decode bucket
                 f_bucket = self._fallback_f(b_bucket, t_bucket, f_bucket)
                 dec_key = hit_key("decode", b_bucket, t_bucket, f_bucket)
@@ -1187,26 +1216,17 @@ class TorchVitsSession:
                 result = decode(f_bucket)
                 with self._lock:
                     self._decode_keys_run.add(dec_key)
+        call.set(f_bucket=f_bucket, speculation=outcome)
+        with tracing.span("session.audio_to_host"):
             audio_np = self._all_rows(np.concatenate(
                 [audio.float().cpu().numpy() for audio, _ in result]
             ))
             sample_lengths_np = self._all_rows(np.concatenate(
                 [lengths_t.cpu().numpy() for _, lengths_t in result]
             ))
-        results = [
+        return [
             audio_np[i, : int(sample_lengths_np[i])] for i in range(batch)
-        ]
-
-        elapsed = time.perf_counter() - start
-        audio_sec = float(sample_lengths_np[:batch].sum()) / (
-            self.config.audio.sample_rate
-        )
-        self.stats.record(elapsed, audio_sec)
-        _LOGGER.debug(
-            "RTF: %s (batch=%d, t_bucket=%d, f_bucket=%d)",
-            self.stats.last_rtf, batch, t_bucket, f_bucket,
-        )
-        return results
+        ], f_bucket
 
     def _speculative_bucket(
         self,
@@ -1214,8 +1234,10 @@ class TorchVitsSession:
         t_bucket: int,
         lengths: np.ndarray,
         length_scale: float,
-    ) -> typing.Optional[int]:
-        """The frame bucket to speculate the decode into, or None.
+    ) -> typing.Tuple[typing.Optional[int], str]:
+        """The frame bucket to speculate the decode into, or None, and
+        why: ``dispatched``, ``skipped`` (the bucket's decode never ran)
+        or ``off``.
 
         The estimate is 1.15 x (frames per phoneme) x (longest input) x
         ``length_scale``, picked into a frame bucket; only a decode
@@ -1227,7 +1249,7 @@ class TorchVitsSession:
             or self.allow_bucket_growth
             or est_fpp is None
         ):
-            return None
+            return None, "off"
         est = est_fpp * float(lengths.max()) * float(length_scale) * 1.15
         bucket = pick_bucket(
             min(int(est) + 1, self.frame_buckets[-1]), self.frame_buckets
@@ -1235,11 +1257,12 @@ class TorchVitsSession:
         key = hit_key("decode", b_bucket, t_bucket, bucket)
         with self._lock:
             ran = key in self._decode_keys_run
-            self.speculation["dispatched" if ran else "skipped"] += 1
+            outcome = "dispatched" if ran else "skipped"
+            self.speculation[outcome] += 1
         if not ran:
-            return None
+            return None, outcome
         self.stats.record_hit(key)
-        return bucket
+        return bucket, outcome
 
     def _observe_frames(
         self, totals: np.ndarray, lengths: np.ndarray, length_scale: float
@@ -1393,31 +1416,66 @@ class TorchVitsSession:
                     )
                 )
             return out
-        id_sequences = self._truncate(id_sequences)
-        batch = len(id_sequences)
+        with tracing.span("session.call", batch=len(id_sequences),
+                          stream=True) as call:
+            return self._stream_call(
+                call, id_sequences, speaker_ids, length_scale, noise_scale,
+                noise_w, seed, chunk_frames, overlap, max_frames_cap,
+                first_chunk_frames,
+            )
+
+    def _stream_call(
+        self,
+        call,
+        id_sequences: typing.Sequence[typing.Sequence[int]],
+        speaker_ids: typing.Optional[typing.Sequence[int]],
+        length_scale: float,
+        noise_scale: float,
+        noise_w: float,
+        seed: typing.Optional[int],
+        chunk_frames: int,
+        overlap: int,
+        max_frames_cap: int,
+        first_chunk_frames: typing.Optional[int],
+    ) -> typing.List[typing.Iterator[np.ndarray]]:
+        """One unsplit stream start, inside ``call`` (its
+        ``session.call`` span)."""
         first_cf = min(first_chunk_frames or chunk_frames, chunk_frames)
         window0 = first_cf + 2 * overlap
-        # the text bucket rounds up to a warmed stream start; continuation
-        # windows inherit it, so their signatures stay warmed too
-        ids, lengths, sid = self._pad(
-            id_sequences, speaker_ids, "stream_start", window0
-        )
-        b_bucket, t_bucket = ids.shape
-        call_seed = self._next_seed(seed)
         with device_work(self.deterministic):
-            ids_t, lengths_t, sid_t = (
-                self._put(ids), self._put(lengths), self._sid(sid)
-            )
-            self._note_run(
-                hit_key("stream_start", b_bucket, t_bucket, window0)
-            )
-            durations, totals, m_p, logs_p, audio0 = self.model.stream_start(
-                self.params, ids_t, lengths_t, call_seed,
-                float(length_scale), float(noise_w), float(noise_scale),
-                window0, sid=sid_t, stage_weights=self.stage_weights,
-            )
-            totals_np = totals.cpu().numpy()  # one host sync for the batch
-            audio0_np = audio0.float().cpu().numpy()
+            with tracing.span("session.prepare"):
+                id_sequences = self._truncate(id_sequences)
+                batch = len(id_sequences)
+                # the text bucket rounds up to a warmed stream start;
+                # continuation windows inherit it, so their signatures
+                # stay warmed too
+                ids, lengths, sid = self._pad(
+                    id_sequences, speaker_ids, "stream_start", window0
+                )
+                b_bucket, t_bucket = ids.shape
+                call_seed = self._next_seed(seed)
+                ids_t, lengths_t, sid_t = (
+                    self._put(ids), self._put(lengths), self._sid(sid)
+                )
+            call.set(t_bucket=t_bucket, f_bucket=window0, seed=call_seed)
+            # one fused pass: the encoder, the durations and the first
+            # window
+            with tracing.span("session.decode", window=0):
+                self._note_run(
+                    hit_key("stream_start", b_bucket, t_bucket, window0)
+                )
+                durations, totals, m_p, logs_p, audio0 = (
+                    self.model.stream_start(
+                        self.params, ids_t, lengths_t, call_seed,
+                        float(length_scale), float(noise_w),
+                        float(noise_scale), window0, sid=sid_t,
+                        stage_weights=self.stage_weights,
+                    )
+                )
+            with tracing.span("session.wait_totals"):
+                totals_np = totals.cpu().numpy()  # one host sync
+            with tracing.span("session.audio_to_host"):
+                audio0_np = audio0.float().cpu().numpy()
 
         if not self.allow_bucket_growth:
             max_frames_cap = min(max_frames_cap, self.frame_buckets[-1])
@@ -1525,17 +1583,21 @@ class TorchVitsSession:
                 # durations predate the cap)
                 self._note_run(hit_key("chunk", 1, ids_row.shape[1], window))
                 with device_work(self.deterministic):
-                    i_t, l_t, s_t, d_t, m_t, lg_t = row_tensors()
-                    audio, _ = self.model.decode_frames(
-                        self.params, i_t, l_t, d_t, window, seed,
-                        float(noise_scale), sid=s_t,
-                        frame_offset=start - left, enc_stats=(m_t, lg_t),
-                        stage_weights=self.stage_weights,
-                    )
-                    chunk = (
-                        audio[0, left * hop : (left + valid) * hop]
-                        .float().cpu().numpy()
-                    )
+                    with tracing.span("session.decode", window=n_chunk,
+                                      batch=1):
+                        i_t, l_t, s_t, d_t, m_t, lg_t = row_tensors()
+                        audio, _ = self.model.decode_frames(
+                            self.params, i_t, l_t, d_t, window, seed,
+                            float(noise_scale), sid=s_t,
+                            frame_offset=start - left,
+                            enc_stats=(m_t, lg_t),
+                            stage_weights=self.stage_weights,
+                        )
+                    with tracing.span("session.audio_to_host"):
+                        chunk = (
+                            audio[0, left * hop : (left + valid) * hop]
+                            .float().cpu().numpy()
+                        )
             emitted += valid
             start += cf
             yield chunk

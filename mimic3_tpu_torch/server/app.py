@@ -21,22 +21,27 @@ Port copy of ``mimic3_tpu/server/app.py``.
 from __future__ import annotations
 
 import asyncio
+import contextlib
+import contextvars
 import dataclasses
+import functools
 import hashlib
 import json
 import logging
 import re
 import shlex
 import subprocess
+import time
 import typing
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 
+from .. import tracing
 from ..engine import Mimic3Settings, Mimic3TextToSpeechSystem
 from ..voices_registry import DEFAULT_VOICE
 from .httpd import HttpResponse, HttpServer, Request
 from .lang import language_names, sample_sentence
-from .scheduler import BatchScheduler
+from .scheduler import BatchScheduler, RequestStats
 
 if typing.TYPE_CHECKING:
     import torch
@@ -90,6 +95,19 @@ class TtsParams:
 
 def _to_bool(s: str) -> bool:
     return (s or "").strip().lower() in {"true", "1", "yes", "on"}
+
+
+@contextlib.contextmanager
+def _timed(name: str, seconds: str) -> typing.Iterator[None]:
+    """The span ``name``, and its seconds added to the request's field
+    ``seconds`` (when a request is being served)."""
+    req = tracing.request()
+    start = time.perf_counter()
+    with tracing.span(name):
+        yield
+    if req is not None:
+        setattr(req, seconds,
+                getattr(req, seconds) + time.perf_counter() - start)
 
 
 def _streaming_wav_header_bytes(
@@ -146,6 +164,7 @@ class TtsApp:
             max_workers=config.num_workers,
             thread_name_prefix="tts-worker",
         )
+        self.requests = RequestStats()
         import threading
 
         self._engines: typing.List[Mimic3TextToSpeechSystem] = []
@@ -176,6 +195,23 @@ class TtsApp:
         )
         self._engines.append(engine)
         return engine
+
+    def _on_worker(self, fn: typing.Callable, *args) -> Future:
+        """``fn(*args)`` on a worker thread, in the caller's context (the
+        request it serves and its span); the wait for a free worker is
+        the ``server.worker_wait`` span and the request's
+        ``worker_wait_s``."""
+        req = tracing.request()
+        waiting = tracing.span("server.worker_wait")
+        submitted = time.perf_counter()
+
+        def work():
+            waiting.end()
+            if req is not None:
+                req.worker_wait_s += time.perf_counter() - submitted
+            return fn(*args)
+
+        return self._executor.submit(contextvars.copy_context().run, work)
 
     def _thread_engine(self) -> Mimic3TextToSpeechSystem:
         engine = getattr(self._engine_local, "engine", None)
@@ -306,11 +342,16 @@ class TtsApp:
         if params.ssml:
             from ..ssml import SSMLSpeaker
 
+            # parsing and phonemes interleave with synthesis: no
+            # server.frontend span
             return SSMLSpeaker(engine).speak(params.text)
-        engine.begin_utterance()
-        engine.speak_text(
-            params.text, text_language=params.text_language
-        )
+        # every sentence's phonemes, queued before any is synthesized;
+        # the engine maps each to ids as it synthesizes it
+        with _timed("server.frontend", "frontend_s"):
+            engine.begin_utterance()
+            engine.speak_text(
+                params.text, text_language=params.text_language
+            )
         return engine.end_utterance()
 
     def _synthesize_blocking(self, params: TtsParams) -> bytes:
@@ -319,8 +360,9 @@ class TtsApp:
 
         from ..api import AudioResult
 
-        results = self._results_blocking(params)
-        with io.BytesIO() as wav_io:
+        results = list(self._results_blocking(params))
+        with _timed("server.wav_encode", "encode_s"), \
+                io.BytesIO() as wav_io:
             wav_file = wave.open(wav_io, "wb")
             params_set = False
             with wav_file:
@@ -349,9 +391,8 @@ class TtsApp:
                 _LOGGER.debug("Cache hit: %s", cached)
                 return cached.read_bytes()
 
-        loop = asyncio.get_running_loop()
-        wav_bytes = await loop.run_in_executor(
-            self._executor, self._synthesize_blocking, params
+        wav_bytes = await asyncio.wrap_future(
+            self._on_worker(self._synthesize_blocking, params)
         )
 
         if self.cache_dir and not no_cache:
@@ -407,10 +448,17 @@ class TtsApp:
         fixed_gain = 32767.0 * 0.7  # headroom in place of peak norm
 
         first = True
-        for sent_phonemes, _bt in voice.text_to_phonemes(
+        sentences = voice.text_to_phonemes(
             params.text, text_language=params.text_language
-        ):
-            ids = voice.phonemes_to_ids(sent_phonemes)
+        )
+        while True:
+            with _timed("server.frontend", "frontend_s"):
+                sentence = next(sentences, None)
+                ids = (
+                    voice.phonemes_to_ids(sentence[0]) if sentence else None
+                )
+            if sentence is None:
+                break
             if not ids:
                 continue
             for chunk in voice.session.synthesize_ids_chunked(
@@ -439,13 +487,18 @@ class TtsApp:
             put(_streaming_wav_header_bytes(22050, 1, 2))
 
     async def stream_wav(
-        self, params: TtsParams, low_latency: bool = False
+        self,
+        params: TtsParams,
+        low_latency: bool = False,
+        request: typing.Any = None,
     ) -> typing.AsyncIterator[bytes]:
         """Chunked WAV: the header goes out with the FIRST synthesized
         sentence; later sentences stream as raw PCM.  First-chunk latency
         is one sentence's synthesis, not the whole document's.
         ``low_latency`` streams windowed decode chunks WITHIN sentences
-        (fixed gain instead of per-sentence peak normalization)."""
+        (fixed gain instead of per-sentence peak normalization).
+        ``request`` (its ``RequestTimes``) gets the first chunk's time
+        and names the request to the producer's spans."""
         import threading
 
         from ..api import AudioResult
@@ -463,6 +516,11 @@ class TtsApp:
                 # consumer already gone: stop the producer immediately
                 # instead of filling the queue and blocking on .result
                 return False
+            if request is not None and request.first_chunk_s is None:
+                # the header goes out with the first audio
+                request.first_chunk_s = (
+                    time.perf_counter() - request.received
+                )
             try:
                 asyncio.run_coroutine_threadsafe(
                     queue.put(chunk), loop
@@ -522,7 +580,8 @@ class TtsApp:
                 except asyncio.QueueFull:
                     pass
 
-        self._executor.submit(produce)
+        with tracing.serving(request, getattr(request, "span", None)):
+            self._on_worker(produce)
         try:
             while True:
                 chunk = await queue.get()
@@ -556,6 +615,20 @@ def build_server(app: TtsApp) -> HttpServer:
     server = HttpServer()
     config = app.config
 
+    async def served(mode: str, text: str, respond) -> HttpResponse:
+        """``await respond(req)`` as one counted request of ``mode``: its
+        ``server.request`` span and seconds run from here to its last
+        byte handed to the socket."""
+        req = app.requests.start(mode, len(text))
+        try:
+            with tracing.serving(req, req.span):
+                response = await respond(req)
+        except BaseException:
+            app.requests.finish(req, False)
+            raise
+        response.done = functools.partial(app.requests.finish, req)
+        return response
+
     @server.route("/api/tts", methods=("GET", "POST"))
     async def api_tts(request: Request):
         if request.method == "POST":
@@ -566,7 +639,15 @@ def build_server(app: TtsApp) -> HttpServer:
             return HttpResponse(body=b"No text provided", status=400)
         if config.max_text_length:
             text = text[: config.max_text_length]
+        streaming = _to_bool(request.arg("streaming", ""))
+        return await served(
+            "stream" if streaming else "wav", text,
+            lambda req: tts(request, text, streaming, req),
+        )
 
+    async def tts(request: Request, text: str, streaming: bool,
+                  req) -> HttpResponse:
+        """The ``/api/tts`` response, in the scope of ``req``."""
         ssml = _to_bool(request.arg("ssml", ""))
         if not ssml and request.content_type.startswith(
             "application/ssml+xml"
@@ -590,7 +671,7 @@ def build_server(app: TtsApp) -> HttpServer:
             cache_id=request.arg("cacheId"),
         )
 
-        if _to_bool(request.arg("streaming", "")):
+        if streaming:
             # chunked WAV, first sentence out as soon as it's ready;
             # streamingMode=low-latency streams WITHIN sentences too
             low_latency = (
@@ -599,7 +680,8 @@ def build_server(app: TtsApp) -> HttpServer:
                 and not params.ssml  # SSML needs the full engine path
             )
             return HttpResponse(
-                stream=app.stream_wav(params, low_latency=low_latency),
+                stream=app.stream_wav(params, low_latency=low_latency,
+                                      request=req),
                 content_type="audio/wav",
             )
 
@@ -620,7 +702,7 @@ def build_server(app: TtsApp) -> HttpServer:
                     play_cmd, input=wav_bytes, check=True
                 ),
             )
-            return "OK"
+            return HttpResponse(body=b"OK")
         return HttpResponse(body=wav_bytes, content_type="audio/wav")
 
     @server.route("/api/voices")
@@ -648,7 +730,15 @@ def build_server(app: TtsApp) -> HttpServer:
 
     @server.route("/api/stats")
     async def api_stats(request: Request):
-        """Serving metrics (mimic3-tpu extension): batch sizes, RTF."""
+        """Serving counters (mimic3-tpu extension), cumulative since the
+        server started, so a client diffs two reads: ``scheduler``
+        (batches, items, adaptive extensions and the sums of seconds
+        ``queue_wait_s`` over items, ``collect_s`` and ``device_s`` over
+        batches), ``requests`` (per mode, ``wav`` and ``stream``: count,
+        items and the sums of seconds of :class:`RequestStats`),
+        ``device`` (calls in flight) and ``voices`` (each session's
+        utterances, RTF, signatures run, hot-path first runs, bucket
+        fallbacks, dispatch counts and ``speculation``)."""
         sessions = {}
         for key, session in app.voice_stats_snapshot().items():
             stats = session.stats
@@ -657,12 +747,9 @@ def build_server(app: TtsApp) -> HttpServer:
                 "mean_rtf": stats.mean_rtf,
                 "last_rtf": stats.last_rtf,
                 "audio_sec": stats.audio_sec,
-                "latency_p50_ms": round(
-                    stats.latency_percentile(50) * 1000, 1
-                ),
-                "latency_p99_ms": round(
-                    stats.latency_percentile(99) * 1000, 1
-                ),
+                # speculative decodes: dispatched, used, fell back,
+                # skipped, overlapped
+                "speculation": dict(session.speculation),
                 # load tests diff this across a run to prove the hot
                 # path ran no signature first
                 "jit_executables": session.jit_executable_count(),
@@ -686,16 +773,19 @@ def build_server(app: TtsApp) -> HttpServer:
             graceful_shutdown_requested,
         )
 
+        scheduler = app.scheduler.stats
         payload = {
             "scheduler": {
-                "batches": app.scheduler.stats.batches,
-                "items": app.scheduler.stats.items,
-                "mean_batch_size": app.scheduler.stats.mean_batch_size,
-                "adaptive_extensions": (
-                    app.scheduler.stats.adaptive_extensions
-                ),
+                "batches": scheduler.batches,
+                "items": scheduler.items,
+                "mean_batch_size": scheduler.mean_batch_size,
+                "adaptive_extensions": scheduler.adaptive_extensions,
                 "current_load": app.scheduler.current_load(),
+                "queue_wait_s": scheduler.queue_wait_s,
+                "collect_s": scheduler.collect_s,
+                "device_s": scheduler.device_s,
             },
+            "requests": app.requests.snapshot(),
             # tooling polls this before terminating the server:
             # terminate only at calls_in_flight == 0
             "device": {
@@ -772,10 +862,14 @@ def build_server(app: TtsApp) -> HttpServer:
             text = text[: config.max_text_length]
         voice = voice or config.voice or DEFAULT_VOICE
         ssml = text.strip().startswith("<")
-        wav_bytes = await app.text_to_wav(
-            TtsParams(text=text, voice=voice, ssml=ssml)
-        )
-        return HttpResponse(body=wav_bytes, content_type="audio/wav")
+
+        async def wav(req) -> HttpResponse:
+            wav_bytes = await app.text_to_wav(
+                TtsParams(text=text, voice=voice, ssml=ssml)
+            )
+            return HttpResponse(body=wav_bytes, content_type="audio/wav")
+
+        return await served("wav", text, wav)
 
     @server.route("/voices")
     async def marytts_voices(request: Request):
@@ -911,7 +1005,9 @@ def _openapi_spec() -> dict:
             },
             "/api/stats": {
                 "get": {
-                    "summary": "Serving metrics (batching, RTF)",
+                    "summary": "Serving counters, cumulative: batching "
+                    "and its seconds, request seconds by mode, RTF, "
+                    "signatures, speculation",
                     "responses": {"200": {"description": "JSON"}},
                 }
             },

@@ -48,6 +48,9 @@ class HttpResponse:
     stream: typing.Optional[typing.AsyncIterator[bytes]] = None
     """When set, the response is sent with chunked transfer encoding and
     ``body`` is ignored; the iterator's chunks go out as they arrive."""
+    done: typing.Optional[typing.Callable[[bool], None]] = None
+    """When set, called once the response's last byte is handed to the
+    socket (True) or its sending failed (False)."""
 
 
 _STATUS_TEXT = {
@@ -218,6 +221,21 @@ class HttpServer:
         return HttpResponse(body=str(result).encode())
 
     async def _write_response(
+        self,
+        writer: asyncio.StreamWriter,
+        response: HttpResponse,
+        keep_alive: bool,
+        method: str,
+    ) -> None:
+        sent = False
+        try:
+            await self._send(writer, response, keep_alive, method)
+            sent = True
+        finally:
+            if response.done is not None:
+                response.done(sent)
+
+    async def _send(
         self,
         writer: asyncio.StreamWriter,
         response: HttpResponse,

@@ -11,11 +11,15 @@ Attach a scheduler to a :class:`~mimic3_tpu.runtime.session.VitsSession`
 any thread — CLI sentences, SSML fragments, HTTP requests — is batched
 transparently.
 
-Port copy of ``mimic3_tpu/server/scheduler.py``.
+Port copy of ``mimic3_tpu/server/scheduler.py``, which also times its
+queue (``SchedulerStats``' sums of seconds and the ``scheduler.*`` spans
+of :mod:`mimic3_tpu_torch.tracing`) and keeps the server's seconds per
+request (``RequestStats``).
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import queue
 import threading
@@ -23,6 +27,8 @@ import time
 import typing
 from concurrent.futures import Future
 from dataclasses import dataclass, field
+
+from .. import tracing
 
 
 _LOGGER = logging.getLogger(__name__)
@@ -42,6 +48,14 @@ class _BatchItem:
     # audio; None = regular full-utterance synthesis
     stream: typing.Optional[typing.Tuple] = None
     future: "Future" = field(default_factory=Future)
+    # the request it serves (tracing.request() at submit), when it was
+    # submitted, and its scheduler.queue_wait span, ended at its batch's
+    # dispatch
+    request: typing.Any = field(default_factory=tracing.request)
+    submitted: float = field(default_factory=time.perf_counter)
+    waiting: typing.Any = field(
+        default_factory=lambda: tracing.span("scheduler.queue_wait")
+    )
 
     def batch_key(self) -> typing.Tuple:
         # requests batch together when the traced scalars, session and
@@ -59,15 +73,92 @@ class _BatchItem:
 
 @dataclass
 class SchedulerStats:
+    """Cumulative; written by the scheduler thread alone."""
+
     batches: int = 0
     items: int = 0
     # batches whose collect window was adaptively extended past the
     # base delay because observed load promised more compatible arrivals
     adaptive_extensions: int = 0
+    # seconds: each item's submit to its batch's dispatch, each batch's
+    # collect window, and each batch's device call
+    queue_wait_s: float = 0.0
+    collect_s: float = 0.0
+    device_s: float = 0.0
 
     @property
     def mean_batch_size(self) -> float:
         return self.items / self.batches if self.batches else 0.0
+
+
+_REQUEST_IDS = itertools.count(1)
+
+
+@dataclass
+class RequestTimes:
+    """One synthesis request's seconds, from its receipt on."""
+
+    mode: str  # "wav" or "stream"
+    id: int = field(default_factory=lambda: next(_REQUEST_IDS))
+    received: float = field(default_factory=time.perf_counter)
+    span: typing.Any = None  # its server.request span
+    items: int = 0  # scheduler items it dispatched (one a sentence)
+    worker_wait_s: float = 0.0
+    frontend_s: float = 0.0
+    queue_wait_s: float = 0.0
+    encode_s: float = 0.0
+    first_chunk_s: typing.Optional[float] = None
+
+
+class RequestStats:
+    """Cumulative seconds of the synthesis requests served to their last
+    byte, by mode: ``count``, the scheduler ``items`` they dispatched,
+    ``worker_wait_s`` (for a free worker thread), ``frontend_s`` (text to
+    phonemes to ids), ``queue_wait_s`` (submit to dispatch, over their
+    items), ``total_s`` (receipt to the last byte handed to the socket);
+    ``encode_s`` (WAV assembly) for ``wav``, ``first_chunk_s`` (receipt to
+    the first chunk handed to the response) for ``stream``."""
+
+    COMMON = ("count", "items", "worker_wait_s", "frontend_s",
+              "queue_wait_s", "total_s")
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._modes: typing.Dict[str, typing.Dict[str, float]] = {
+            "wav": dict.fromkeys(self.COMMON + ("encode_s",), 0),
+            "stream": dict.fromkeys(self.COMMON + ("first_chunk_s",), 0),
+        }
+
+    def start(self, mode: str, characters: int) -> RequestTimes:
+        req = RequestTimes(mode)
+        with tracing.serving(req):
+            req.span = tracing.span("server.request", mode=mode,
+                                    characters=characters)
+        return req
+
+    def finish(self, req: RequestTimes, ok: bool) -> None:
+        """The request's last byte went to the socket (``ok``), or it
+        failed: only a served request is counted."""
+        total = time.perf_counter() - req.received
+        req.span.end(ok=ok)
+        if not ok:
+            return
+        with self._lock:
+            m = self._modes[req.mode]
+            m["count"] += 1
+            m["items"] += req.items
+            m["worker_wait_s"] += req.worker_wait_s
+            m["frontend_s"] += req.frontend_s
+            m["queue_wait_s"] += req.queue_wait_s
+            m["total_s"] += total
+            if req.mode == "wav":
+                m["encode_s"] += req.encode_s
+            elif req.first_chunk_s is not None:
+                m["first_chunk_s"] += req.first_chunk_s
+
+    def snapshot(self) -> typing.Dict[str, typing.Dict[str, float]]:
+        with self._lock:
+            return {mode: dict(m) for mode, m in self._modes.items()}
 
 
 class _TrackedStream:
@@ -195,6 +286,7 @@ class BatchScheduler:
         # can land after the None sentinel
         with self._submit_lock:
             if self._closed:
+                item.waiting.end()
                 raise RuntimeError("BatchScheduler is shut down")
             with self._load_lock:
                 self._unresolved += 1
@@ -237,6 +329,7 @@ class BatchScheduler:
         )
         with self._submit_lock:
             if self._closed:
+                item.waiting.end()
                 raise RuntimeError("BatchScheduler is shut down")
             with self._load_lock:
                 self._unresolved += 1
@@ -308,9 +401,30 @@ class BatchScheduler:
                 first = self._queue.get()
             if first is None:
                 return
-            batch = self._collect(first)
+            taken = time.perf_counter()
+            with tracing.span("scheduler.collect"):
+                batch = self._collect(first)
+            dispatched = time.perf_counter()
             self.stats.batches += 1
             self.stats.items += len(batch)
+            self.stats.collect_s += dispatched - taken
+            for item in batch:
+                wait = dispatched - item.submitted
+                item.waiting.end()
+                self.stats.queue_wait_s += wait
+                if item.request is not None:
+                    item.request.queue_wait_s += wait
+                    item.request.items += 1
+            self._dispatch(first, batch)
+            self.stats.device_s += time.perf_counter() - dispatched
+
+    def _dispatch(self, first: _BatchItem, batch: typing.List[_BatchItem]):
+        """Run one batch's device call and resolve its futures."""
+        with tracing.span(
+            "scheduler.batch", size=len(batch),
+            stream=first.stream is not None,
+            requests=[getattr(item.request, "id", None) for item in batch],
+        ):
             try:
                 if first.stream is not None:
                     cf, ov, cap, fcf = first.stream
