@@ -554,13 +554,17 @@ class VitsModel:
         noise_w: float,
         sid: typing.Optional[torch.Tensor] = None,
         dur_noise: typing.Optional[torch.Tensor] = None,
+        g: typing.Optional[torch.Tensor] = None,
     ) -> typing.Tuple[torch.Tensor, torch.Tensor]:
         """Returns (frame counts per phoneme int32 [B, T], totals [B]).
 
         ``dur_noise`` [B, T, 2] overrides the position-indexed SDP noise.
+        ``g`` is the speakers' embedding (:meth:`speaker_embedding`),
+        gathered by the caller; without it ``sid``'s is gathered here.
         """
         durations, totals, _ = self._durations(
-            params, ids, lengths, seed, length_scale, noise_w, sid, dur_noise
+            params, ids, lengths, seed, length_scale, noise_w, sid, dur_noise,
+            g,
         )
         return durations, totals
 
@@ -574,13 +578,15 @@ class VitsModel:
         noise_w: float,
         sid: typing.Optional[torch.Tensor],
         dur_noise: typing.Optional[torch.Tensor] = None,
+        g: typing.Optional[torch.Tensor] = None,
     ) -> typing.Tuple[
         torch.Tensor, torch.Tensor, typing.Tuple[torch.Tensor, torch.Tensor]
     ]:
         """Durations, totals and the encoder's (m_p, logs_p)."""
         b, t = ids.shape
         x_mask = sequence_mask(lengths, t)
-        g = self.speaker_embedding(params, sid)
+        if g is None:
+            g = self.speaker_embedding(params, sid)
         x, m_p, logs_p = self.encode(params, ids, x_mask)
         if self.hp.use_sdp:
             if dur_noise is None:
@@ -656,6 +662,7 @@ class VitsModel:
         enc_stats: typing.Optional[
             typing.Tuple[torch.Tensor, torch.Tensor]
         ] = None,
+        g: typing.Optional[torch.Tensor] = None,
     ) -> typing.Tuple[torch.Tensor, torch.Tensor]:
         """Decode to audio given per-phoneme frame counts.
 
@@ -664,9 +671,11 @@ class VitsModel:
         num_frames)`` of the utterance (chunked decode).
         ``prior_noise`` [B, F, inter] overrides the frame-indexed noise.
         ``enc_stats`` = precomputed ``(m_p, logs_p)`` skips the encoder.
+        ``g`` = the speakers' embedding gathered by the caller.
         """
         x_mask = sequence_mask(lengths, ids.shape[1])
-        g = self.speaker_embedding(params, sid)
+        if g is None:
+            g = self.speaker_embedding(params, sid)
         if enc_stats is not None:
             m_p, logs_p = enc_stats
         else:

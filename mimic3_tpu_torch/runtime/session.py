@@ -216,6 +216,10 @@ class SessionStats:
     last_rtf: float = 0.0
     executable_hits: typing.Dict[str, int] = field(default_factory=dict)
     bucket_fallbacks: typing.Dict[str, int] = field(default_factory=dict)
+    # batch calls: rows x frame bucket of every decode dispatched, and the
+    # real rows' frames returned
+    frames_decoded: int = 0
+    frames_returned: int = 0
     _lock: threading.Lock = field(
         default_factory=threading.Lock, repr=False, compare=False
     )
@@ -254,6 +258,11 @@ class SessionStats:
     def fallbacks_snapshot(self) -> typing.Dict[str, int]:
         with self._lock:
             return dict(self.bucket_fallbacks)
+
+    def record_frames(self, decoded: int, returned: int) -> None:
+        with self._lock:
+            self.frames_decoded += decoded
+            self.frames_returned += returned
 
     def record(self, infer_sec: float, audio_sec: float) -> None:
         with self._lock:
@@ -704,8 +713,8 @@ class _ShardCall:
     replica: _Replica
     ids: torch.Tensor
     lengths: torch.Tensor
-    sid: typing.Optional[torch.Tensor]
-    durations: torch.Tensor
+    g: typing.Optional[torch.Tensor]  # speakers' embedding [B, gin, 1]
+    durations: typing.Optional[torch.Tensor]
 
 
 class TorchVitsSession:
@@ -1122,20 +1131,27 @@ class TorchVitsSession:
             if not self.allow_bucket_growth:
                 max_frames_cap = min(max_frames_cap, self.frame_buckets[-1])
             # each shard's rows on its replica's device
+            parts = self._shards(b_bucket)
             shards = [
                 _ShardCall(rep, self._put(ids[rows], rep.device),
-                           self._put(lengths[rows], rep.device),
-                           self._sid(sid[rows], rep.device), None)
-                for rep, rows in self._shards(b_bucket)
+                           self._put(lengths[rows], rep.device), None, None)
+                for rep, rows in parts
             ]
-        call.set(t_bucket=t_bucket, seed=call_seed)
+            speakers = len(set(sid[:batch].tolist()))
+            if self._multispeaker:
+                with tracing.span("model.speaker", speakers=speakers):
+                    for sh, (rep, rows) in zip(shards, parts):
+                        sh.g = self.model.speaker_embedding(
+                            rep.params, self._put(sid[rows], rep.device)
+                        )
+        call.set(t_bucket=t_bucket, seed=call_seed, speakers=speakers)
 
         with tracing.span("session.duration"):
             waits = []
             for sh in shards:
                 sh.durations, totals = self.model.infer_durations(
                     sh.replica.params, sh.ids, sh.lengths, call_seed,
-                    length_scale, noise_w, sid=sh.sid,
+                    length_scale, noise_w, g=sh.g,
                 )
                 waits.append(_start_host_copy(totals))
             self._note_run(hit_key("duration", b_bucket, t_bucket))
@@ -1145,7 +1161,7 @@ class TorchVitsSession:
             return [
                 self.model.decode_frames(
                     sh.replica.params, sh.ids, sh.lengths, sh.durations,
-                    num_frames, call_seed, noise_scale, sid=sh.sid,
+                    num_frames, call_seed, noise_scale, g=sh.g,
                     stage_weights=sh.replica.stage_weights,
                 )
                 for sh in shards
@@ -1224,6 +1240,15 @@ class TorchVitsSession:
             sample_lengths_np = self._all_rows(np.concatenate(
                 [lengths_t.cpu().numpy() for _, lengths_t in result]
             ))
+        # every decode dispatched (a speculative one that fell back too)
+        # against the real rows' frames
+        decoded = 0 if used else f_bucket
+        if spec_result is not None:
+            decoded += spec_bucket
+        self.stats.record_frames(
+            b_bucket * decoded,
+            int(sample_lengths_np[:batch].sum()) // self.model.hp.hop_length,
+        )
         return [
             audio_np[i, : int(sample_lengths_np[i])] for i in range(batch)
         ], f_bucket

@@ -738,7 +738,8 @@ def build_server(app: TtsApp) -> HttpServer:
         items and the sums of seconds of :class:`RequestStats`),
         ``device`` (calls in flight) and ``voices`` (each session's
         utterances, RTF, signatures run, hot-path first runs, bucket
-        fallbacks, dispatch counts and ``speculation``)."""
+        fallbacks, dispatch counts, ``speculation`` and the frame
+        counters ``frames_decoded`` and ``frames_returned``)."""
         sessions = {}
         for key, session in app.voice_stats_snapshot().items():
             stats = session.stats
@@ -750,6 +751,10 @@ def build_server(app: TtsApp) -> HttpServer:
                 # speculative decodes: dispatched, used, fell back,
                 # skipped, overlapped
                 "speculation": dict(session.speculation),
+                # batch calls: rows x frame bucket of every decode
+                # dispatched, and the real rows' frames returned
+                "frames_decoded": stats.frames_decoded,
+                "frames_returned": stats.frames_returned,
                 # load tests diff this across a run to prove the hot
                 # path ran no signature first
                 "jit_executables": session.jit_executable_count(),
