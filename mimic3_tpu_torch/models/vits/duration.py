@@ -177,7 +177,7 @@ def stochastic_duration_predictor_infer(
     x: torch.Tensor,
     x_mask: torch.Tensor,
     noise: torch.Tensor,
-    noise_scale: float,
+    noise_scale: typing.Union[float, torch.Tensor],
     g: typing.Optional[torch.Tensor] = None,
     *,
     n_flows: int = SDP_N_FLOWS,
@@ -186,6 +186,7 @@ def stochastic_duration_predictor_infer(
 
     ``noise`` [B, 2, T] is drawn by the caller (position-indexed in
     ``model.py``).  With ``noise_scale == 0`` the path is deterministic.
+    ``noise_scale`` may be a 0-d float32 tensor on ``noise``'s device.
     """
     cond = _sdp_condition(params, x, x_mask, g)
     z = noise * noise_scale * x_mask

@@ -118,6 +118,9 @@ class VitsHyperparams:
 # Noise
 # ---------------------------------------------------------------------------
 
+# a scalar factor: a float, or a 0-d float32 tensor on the device
+Scale = typing.Union[float, torch.Tensor]
+
 NOISE_CHUNK = 256  # positions per generator
 PRIOR_NOISE_STREAM = 1
 DURATION_NOISE_STREAM = 2
@@ -550,8 +553,8 @@ class VitsModel:
         ids: torch.Tensor,
         lengths: torch.Tensor,
         seed: int,
-        length_scale: float,
-        noise_w: float,
+        length_scale: Scale,
+        noise_w: Scale,
         sid: typing.Optional[torch.Tensor] = None,
         dur_noise: typing.Optional[torch.Tensor] = None,
         g: typing.Optional[torch.Tensor] = None,
@@ -561,6 +564,9 @@ class VitsModel:
         ``dur_noise`` [B, T, 2] overrides the position-indexed SDP noise.
         ``g`` is the speakers' embedding (:meth:`speaker_embedding`),
         gathered by the caller; without it ``sid``'s is gathered here.
+        ``length_scale`` and ``noise_w`` may be 0-d float32 tensors on
+        the device (a CUDA graph's inputs, read when it replays): a
+        float32 product with one equals the product with the float.
         """
         durations, totals, _ = self._durations(
             params, ids, lengths, seed, length_scale, noise_w, sid, dur_noise,
@@ -568,14 +574,20 @@ class VitsModel:
         )
         return durations, totals
 
+    @staticmethod
+    def duration_noise(seed: int, t: int) -> torch.Tensor:
+        """The SDP's noise ``[t, 2]`` on the host, position-indexed
+        (:func:`indexed_noise`) and the same for every row."""
+        return indexed_noise(seed, DURATION_NOISE_STREAM, 0, t, 2)
+
     def _durations(
         self,
         params: Params,
         ids: torch.Tensor,
         lengths: torch.Tensor,
         seed: int,
-        length_scale: float,
-        noise_w: float,
+        length_scale: Scale,
+        noise_w: Scale,
         sid: typing.Optional[torch.Tensor],
         dur_noise: typing.Optional[torch.Tensor] = None,
         g: typing.Optional[torch.Tensor] = None,
@@ -591,8 +603,7 @@ class VitsModel:
         if self.hp.use_sdp:
             if dur_noise is None:
                 noise = upload(
-                    indexed_noise(seed, DURATION_NOISE_STREAM, 0, t, 2),
-                    x.device,
+                    self.duration_noise(seed, t), x.device
                 ).t()[None].expand(b, 2, t)
             else:
                 noise = upload(dur_noise, x.device).transpose(1, 2)

@@ -46,7 +46,12 @@ runs the row's program on its device with its own part of each split
 leaf, and the collectives run over the row's process group.  As in the
 reference, the fused stage kernel is off under any ``tp > 1`` mesh.
 
-Not ported yet: CUDA graphs per warmed signature.
+On a card, with no tp split, the batch path replays its duration pass
+(the text encoder and the stochastic duration predictor, hundreds of
+small kernels) from one CUDA graph per (device, rows, text bucket,
+speaker-conditioned or not), captured only while no other thread has a
+device call in flight (:class:`_DurationGraphs`).  Decodes, stream starts
+and continuation windows are issued op by op.
 """
 
 from __future__ import annotations
@@ -79,22 +84,57 @@ _LOGGER = logging.getLogger(__name__)
 _DEVICE_CALLS = 0
 _DEVICE_CALLS_COND = threading.Condition()
 _SHUTDOWN_EVENT = threading.Event()
+# the thread inside :func:`_sole_device_call`, if any, and each thread's
+# own device calls in flight (nested calls count each)
+_SOLE_THREAD: typing.Optional[int] = None
+_OWN_CALLS = threading.local()
 
 
 class _device_call:
-    """Marks one device dispatch in flight."""
+    """Marks one device dispatch in flight.  A new one waits while another
+    thread is inside :func:`_sole_device_call`."""
 
     def __enter__(self) -> "_device_call":
         global _DEVICE_CALLS
+        me = threading.get_ident()
         with _DEVICE_CALLS_COND:
+            while _SOLE_THREAD not in (None, me):
+                _DEVICE_CALLS_COND.wait()
             _DEVICE_CALLS += 1
+        _OWN_CALLS.n = getattr(_OWN_CALLS, "n", 0) + 1
         return self
 
     def __exit__(self, *exc) -> None:
         global _DEVICE_CALLS
+        _OWN_CALLS.n -= 1
         with _DEVICE_CALLS_COND:
             _DEVICE_CALLS -= 1
             if _DEVICE_CALLS == 0:
+                _DEVICE_CALLS_COND.notify_all()
+
+
+@contextlib.contextmanager
+def _sole_device_call() -> typing.Iterator[bool]:
+    """Yields whether the calling thread's device calls are the only ones
+    in flight in the process.  While they are, every other thread's new
+    device call waits at its start until this exits; if not, nothing is
+    held.  Every session's device work runs inside :func:`device_work`
+    (batch calls, stream starts, continuation windows, warmups), so a
+    CUDA graph captured inside this meets no other thread's launch, sync
+    or allocation on the card."""
+    global _SOLE_THREAD
+    with _DEVICE_CALLS_COND:
+        sole = _SOLE_THREAD is None and _DEVICE_CALLS == getattr(
+            _OWN_CALLS, "n", 0
+        )
+        if sole:
+            _SOLE_THREAD = threading.get_ident()
+    try:
+        yield sole
+    finally:
+        if sole:
+            with _DEVICE_CALLS_COND:
+                _SOLE_THREAD = None
                 _DEVICE_CALLS_COND.notify_all()
 
 
@@ -201,6 +241,9 @@ def install_kill_safe_sigterm() -> None:
 # ---------------------------------------------------------------------------
 
 
+DURATION_GRAPH_COUNTS = ("captured", "replayed", "eager", "capture_failed")
+
+
 @dataclass
 class SessionStats:
     """Cumulative synthesis statistics (RTF = infer_sec / audio_sec).
@@ -220,6 +263,12 @@ class SessionStats:
     # real rows' frames returned
     frames_decoded: int = 0
     frames_returned: int = 0
+    # the batch path's duration passes by how they ran (a CUDA graph
+    # captured, replayed, or eager issue), and the captures or replays
+    # that raised (their bucket then runs eagerly)
+    duration_graph: typing.Dict[str, int] = field(
+        default_factory=lambda: dict.fromkeys(DURATION_GRAPH_COUNTS, 0)
+    )
     _lock: threading.Lock = field(
         default_factory=threading.Lock, repr=False, compare=False
     )
@@ -258,6 +307,14 @@ class SessionStats:
     def fallbacks_snapshot(self) -> typing.Dict[str, int]:
         with self._lock:
             return dict(self.bucket_fallbacks)
+
+    def record_duration_graph(self, outcome: str) -> None:
+        with self._lock:
+            self.duration_graph[outcome] += 1
+
+    def duration_graph_snapshot(self) -> typing.Dict[str, int]:
+        with self._lock:
+            return dict(self.duration_graph)
 
     def record_frames(self, decoded: int, returned: int) -> None:
         with self._lock:
@@ -717,6 +774,224 @@ class _ShardCall:
     durations: typing.Optional[torch.Tensor]
 
 
+def duration_graphs_apply(device: torch.device, tp: int) -> bool:
+    """Whether the batch path replays its duration pass from CUDA graphs:
+    on a card, with each dp replica on one device (no tp split)."""
+    return device.type == "cuda" and tp == 1
+
+
+def _on(device: torch.device) -> typing.ContextManager:
+    """``device`` current, for a card's streams and graphs."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+class _StaticDurationPass:
+    """One bucket's duration pass on fixed buffers: the inputs the host
+    fills before each run (ids, lengths, the speakers' embedding, the SDP
+    noise of :meth:`VitsModel.duration_noise`, and ``length_scale`` and
+    ``noise_w`` read as 0-d tensors, so no call's value is frozen into
+    the graph), and once captured, the graph and its outputs."""
+
+    def __init__(
+        self,
+        model: VitsModel,
+        params: typing.Dict[str, typing.Any],
+        ids: torch.Tensor,
+        lengths: torch.Tensor,
+        g: typing.Optional[torch.Tensor],
+    ):
+        self._model, self._params = model, params
+        self.ids = torch.empty_like(ids)
+        self.lengths = torch.empty_like(lengths)
+        self.g = None if g is None else torch.empty_like(g)
+        self.noise = torch.empty((ids.shape[1], 2), device=ids.device)
+        self.scales = torch.empty((2,), device=ids.device)
+        self.graph: typing.Any = None  # a torch.cuda.CUDAGraph once captured
+        self.outputs: typing.Tuple[torch.Tensor, ...] = ()
+
+    def fill(
+        self,
+        ids: torch.Tensor,
+        lengths: torch.Tensor,
+        g: typing.Optional[torch.Tensor],
+        noise: torch.Tensor,
+        scales: torch.Tensor,
+    ) -> None:
+        """Copy one call's inputs in; the host's go through pinned memory
+        and do not block the host."""
+        self.ids.copy_(ids)
+        self.lengths.copy_(lengths)
+        if g is not None:
+            self.g.copy_(g)
+        for dst, src in ((self.noise, noise), (self.scales, scales)):
+            dst.copy_(src.pin_memory() if dst.is_cuda else src,
+                      non_blocking=True)
+
+    def run(self) -> typing.Tuple[torch.Tensor, torch.Tensor]:
+        """The pass on the buffers, issued op by op: (durations, totals)."""
+        b, t = self.ids.shape
+        return self._model.infer_durations(
+            self._params, self.ids, self.lengths, 0, self.scales[0],
+            self.scales[1], dur_noise=self.noise[None].expand(b, t, 2),
+            g=self.g,
+        )
+
+    def replay(self) -> typing.Tuple[torch.Tensor, ...]:
+        """Replay the graph.  Its outputs come back cloned: the next
+        replay writes the same buffers."""
+        self.graph.replay()
+        return tuple(t.clone() for t in self.outputs)
+
+
+class _DurationGraphs:
+    """The batch path's duration pass, replayed from one CUDA graph per
+    (device, rows, text bucket, speaker-conditioned or not).
+
+    A bucket is captured in a warmup, else on its second eager run (the
+    first does cuDNN's and the allocator's first-call work), and only
+    inside :func:`_sole_device_call`, so a serving process's other threads
+    (continuation drivers, streams decoding their own windows) put
+    nothing on the card meanwhile; a capture that finds them busy waits
+    for a later call.  It runs on a side stream in thread-local capture
+    mode.  A device's graphs share one memory pool: passes are serialized
+    here and each replay's outputs are cloned, so no replay overwrites
+    what an earlier call still reads.  A capture or replay that raises
+    leaves its bucket eager for good, logged and counted, and the call
+    runs eagerly; the caller never sees the error.
+    """
+
+    def __init__(self, model: VitsModel, stats: SessionStats, enabled: bool):
+        self.enabled = enabled
+        self._model = model
+        self._stats = stats
+        self._lock = threading.Lock()
+        self._passes: typing.Dict[tuple, _StaticDurationPass] = {}
+        self._ran_eagerly: typing.Set[tuple] = set()
+        self._failed: typing.Set[tuple] = set()
+        self._streams: typing.Dict[torch.device, typing.Any] = {}
+        self._pools: typing.Dict[torch.device, typing.Any] = {}
+
+    def run(
+        self,
+        replica: _Replica,
+        ids: torch.Tensor,
+        lengths: torch.Tensor,
+        g: typing.Optional[torch.Tensor],
+        seed: int,
+        length_scale: float,
+        noise_w: float,
+        *,
+        capture: bool = False,
+    ) -> typing.Tuple[torch.Tensor, torch.Tensor, str]:
+        """One shard's durations and totals, and how the pass ran:
+        ``replay``, ``capture`` or ``eager``.  With ``capture`` (a
+        warmup) a bucket is captured at its first run."""
+        key = (str(replica.device), *ids.shape, g is not None)
+        with self._lock:
+            out, how = None, "eager"
+            entry = self._passes.get(key)
+            if self.enabled and key not in self._failed and (
+                entry is not None or capture or key in self._ran_eagerly
+            ):
+                out, how = self._graphed(
+                    key, entry, replica, ids, lengths, g, seed,
+                    length_scale, noise_w,
+                )
+            if out is None:
+                out = self._model.infer_durations(
+                    replica.params, ids, lengths, seed, length_scale,
+                    noise_w, g=g,
+                )
+                self._ran_eagerly.add(key)
+        self._stats.record_duration_graph(
+            {"replay": "replayed", "capture": "captured"}.get(how, how)
+        )
+        return out[0], out[1], how
+
+    def _graphed(self, key, entry, replica, ids, lengths, g, seed,
+                 length_scale, noise_w):
+        """(outputs, how) by replaying or capturing, or (None, "eager")."""
+        device = replica.device
+
+        def fill(entry: _StaticDurationPass) -> None:
+            entry.fill(
+                ids, lengths, g,
+                self._model.duration_noise(seed, ids.shape[1]),
+                torch.tensor([length_scale, noise_w], dtype=torch.float32),
+            )
+
+        if entry is not None:
+            try:
+                with _on(device):
+                    fill(entry)
+                    return entry.replay(), "replay"
+            except Exception as err:  # noqa: BLE001 — the call runs eagerly
+                self._fail(key, device, "replay", err)
+                return None, "eager"
+        with _sole_device_call() as sole:
+            if not sole:
+                return None, "eager"
+            try:
+                entry = _StaticDurationPass(
+                    self._model, replica.params, ids, lengths, g
+                )
+                with _on(device):
+                    fill(entry)
+                    out = self._capture(entry, device)
+            except Exception as err:  # noqa: BLE001 — the call runs eagerly
+                self._fail(key, device, "capture", err)
+                return None, "eager"
+        self._passes[key] = entry
+        return out, "capture"
+
+    def _capture(
+        self, entry: _StaticDurationPass, device: torch.device
+    ) -> typing.Tuple[torch.Tensor, torch.Tensor]:
+        """Run the pass once on the device's capture stream, which gives
+        this call's answer and keeps the stream's first-call work (its
+        library workspaces) out of the graph, then capture it there."""
+        current = torch.cuda.current_stream(device)
+        if device not in self._streams:
+            self._streams[device] = torch.cuda.Stream(device)
+            self._pools[device] = torch.cuda.graph_pool_handle()
+        side = self._streams[device]
+        side.wait_stream(current)
+        try:
+            with torch.cuda.stream(side):
+                out = entry.run()
+                graph = torch.cuda.CUDAGraph()
+                graph.capture_begin(pool=self._pools[device],
+                                    capture_error_mode="thread_local")
+                try:
+                    entry.outputs = entry.run()
+                finally:
+                    graph.capture_end()
+        finally:
+            # the buffers go back to the allocator on this stream
+            current.wait_stream(side)
+        for t in out:
+            t.record_stream(current)
+        entry.graph = graph
+        return out
+
+    def _fail(self, key: tuple, device: torch.device, what: str,
+              err: BaseException) -> None:
+        self._failed.add(key)
+        self._passes.pop(key, None)
+        if what == "capture":
+            # a capture cut short may leave its stream tied to the pool
+            self._streams.pop(device, None)
+            self._pools.pop(device, None)
+        self._stats.record_duration_graph("capture_failed")
+        _LOGGER.warning(
+            "Duration pass %s: its CUDA graph's %s raised (%s: %s); the "
+            "bucket runs eagerly from now on",
+            key, what, type(err).__name__, err, exc_info=err,
+        )
+
+
 class TorchVitsSession:
     """A voice's synthesis engine on one torch device, or data parallel
     over the dp axis of ``mesh``, each dp row split over its tp devices
@@ -830,6 +1105,9 @@ class TorchVitsSession:
             ("dispatched", "used", "fell_back", "skipped", "overlapped"), 0
         )
         self.stats = SessionStats()
+        self._duration_graphs = _DurationGraphs(
+            self.model, self.stats, duration_graphs_apply(self.device, tp)
+        )
         self.seed = seed
         self._call_counter = 0
         self._lock = threading.Lock()
@@ -1146,14 +1424,16 @@ class TorchVitsSession:
                         )
         call.set(t_bucket=t_bucket, seed=call_seed, speakers=speakers)
 
-        with tracing.span("session.duration"):
-            waits = []
+        with tracing.span("session.duration") as duration:
+            waits, hows = [], set()
             for sh in shards:
-                sh.durations, totals = self.model.infer_durations(
-                    sh.replica.params, sh.ids, sh.lengths, call_seed,
-                    length_scale, noise_w, g=sh.g,
+                sh.durations, totals, how = self._duration_graphs.run(
+                    sh.replica, sh.ids, sh.lengths, sh.g, call_seed,
+                    length_scale, noise_w,
                 )
+                hows.add(how)
                 waits.append(_start_host_copy(totals))
+            duration.set(graph=",".join(sorted(hows)))
             self._note_run(hit_key("duration", b_bucket, t_bucket))
 
         def decode(num_frames: int):
@@ -1651,8 +1931,9 @@ class TorchVitsSession:
         bucket, the batch-1 chunk windows and the batched continuation
         window.  PyTorch compiles nothing per shape, so what warmup buys
         here is the warmed set the bucket fallback rounds up to, the
-        baseline of :meth:`hot_path_compiles`, and cuDNN's and the
-        allocator's first-call work off the request path.  The calls run
+        baseline of :meth:`hot_path_compiles`, cuDNN's and the
+        allocator's first-call work off the request path, and on a card
+        each warmed duration signature's CUDA graph.  The calls run
         one after another on the one device; ``parallel`` is accepted for
         the reference's signature and not used.
         """
@@ -1701,8 +1982,12 @@ class TorchVitsSession:
                 with device_work(self.deterministic):
                     for rep in replicas:
                         ids, lengths, sid = inputs(b // self.dp, t, rep.device)
-                        durations, _ = self.model.infer_durations(
-                            rep.params, ids, lengths, 0, 1.0, 0.8, sid=sid
+                        # the batch path's pass (on a card, its graph)
+                        durations, _, _ = self._duration_graphs.run(
+                            rep, ids, lengths,
+                            self.model.speaker_embedding(rep.params, sid),
+                            0, 1.0, 0.8,
+                            capture=want(hit_key("duration", b, t)),
                         )
                         for f in fbs:
                             self.model.decode_frames(

@@ -738,8 +738,11 @@ def build_server(app: TtsApp) -> HttpServer:
         items and the sums of seconds of :class:`RequestStats`),
         ``device`` (calls in flight) and ``voices`` (each session's
         utterances, RTF, signatures run, hot-path first runs, bucket
-        fallbacks, dispatch counts, ``speculation`` and the frame
-        counters ``frames_decoded`` and ``frames_returned``)."""
+        fallbacks, dispatch counts, ``speculation``, the frame counters
+        ``frames_decoded`` and ``frames_returned``, and
+        ``duration_graph``: the batch path's duration passes captured as
+        a CUDA graph, replayed, issued eagerly, and the graphs that
+        failed)."""
         sessions = {}
         for key, session in app.voice_stats_snapshot().items():
             stats = session.stats
@@ -755,6 +758,9 @@ def build_server(app: TtsApp) -> HttpServer:
                 # dispatched, and the real rows' frames returned
                 "frames_decoded": stats.frames_decoded,
                 "frames_returned": stats.frames_returned,
+                # the batch path's duration passes: captured, replayed,
+                # eager, capture_failed
+                "duration_graph": stats.duration_graph_snapshot(),
                 # load tests diff this across a run to prove the hot
                 # path ran no signature first
                 "jit_executables": session.jit_executable_count(),
@@ -1012,7 +1018,7 @@ def _openapi_spec() -> dict:
                 "get": {
                     "summary": "Serving counters, cumulative: batching "
                     "and its seconds, request seconds by mode, RTF, "
-                    "signatures, speculation",
+                    "signatures, speculation, duration graphs",
                     "responses": {"200": {"description": "JSON"}},
                 }
             },

@@ -281,6 +281,11 @@ def test_stats_count_requests_and_seconds(server):
         "dispatched", "used", "fell_back", "skipped", "overlapped"}
     # the WAV requests' batch calls: decoded frames cover the returned ones
     assert voice["frames_decoded"] >= voice["frames_returned"] > 0
+    # on the CPU every duration pass is issued eagerly
+    graphs = voice["duration_graph"]
+    assert graphs["eager"] > 0
+    assert graphs["captured"] == graphs["replayed"] == 0
+    assert graphs["capture_failed"] == 0
     assert "latency_p50_ms" not in voice and "latency_p99_ms" not in voice
     session = app.voice_stats_snapshot()[KEY]
     assert not hasattr(session.stats, "rtf_history")
