@@ -7,14 +7,17 @@ each against its plain PyTorch version at the shapes its path gives it,
 f32 (three TF32 passes) and bf16 (tensor cores), and at C = 8 (FFMA) in
 both, timed in turns with CUDA events; the stage is also swept in both
 dtypes over the decoder's fusable stages (the sweep that sets each
-dtype's stage gate, held to the session's within a noise band).  Then
+dtype's stage gate, held to the session's within a noise band), and both
+bf16 stages at the benchmark's decode shape (16 rows x 1024 frames).  Then
 drives the port's paths on a full-width ``*_low`` voice with random
 weights made from a seed, each with the kernel launch counts set to 0
 just before it and read just after:
 
 - the main path: engine -> voice -> session -> VITS -> WAV, in process
   and through the CLI, deterministic (f32 decoder: bitwise-equal WAVs
-  from two calls, the f32 stage launches per call) and default (bf16);
+  from two calls, the f32 stage launches per call) and default (bf16:
+  the batch path against plain and f32 at 4 rows and at the benchmark's
+  16 rows of 128 ids in the 1024-frame bucket);
 - the resblock profiling entry point
   (``python -m mimic3_tpu_torch.scripts.profile_resblock``);
 - streaming: ``synthesize_ids_chunked`` and ``stream_start_batch``;
@@ -63,11 +66,7 @@ just before it and read just after:
   (``python -m mimic3_tpu_torch.scripts.serve_load_test``) at the
   reference's traffic on the full-width voice: no signature first run on
   the hot path, mean batch above 1, first-chunk latency at 1/4/16
-  streamers (its launches, in the server's process, are not counted);
-- the bench (``python -m mimic3_tpu_torch.scripts.bench``) at its
-  defaults with its timed loops cut short: batch 16 x 1024 frames, its
-  output check, whole-call MFU share and stage kernel A/B (its launches
-  are counted in its process and read from its result line).
+  streamers (its launches, in the server's process, are not counted).
 
     python3 chip_smoke.py
 
@@ -128,6 +127,11 @@ DILATIONS = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
 # frame buckets of the kernel checks: 128 is the one the random voice's
 # sentences decode in (about one frame per phoneme), 256 a longer sentence
 FRAME_BUCKETS = (128, 256)
+# the shape of the benchmark's synth cells: 16 rows of 128 ids a call,
+# decoded in the 1024-frame bucket
+MAIN_ROWS = 16
+MAIN_IDS = 128
+MAIN_FRAMES = 1024
 # the server's low-latency streaming grid (mimic3_tpu/server/app.py)
 STREAM_GRID = dict(chunk_frames=128, overlap=64, first_chunk_frames=32)
 F32_BAR = "2e-4 + 1e-3*|ref|"
@@ -490,18 +494,74 @@ def corr(a: np.ndarray, b: np.ndarray) -> float:
     return float(np.corrcoef(a.astype(np.float64), b.astype(np.float64))[0, 1])
 
 
-def time_session(session, batches, runs: int):
-    """Median wall seconds per call (ends in a host copy) and audio s/s."""
-    session.synthesize_ids_batch(batches)  # warm
+def time_session(session, batches, runs: int, **kw):
+    """Median wall seconds per call (ends in a host copy) and audio s/s;
+    ``kw`` goes to ``synthesize_ids_batch``."""
+    session.synthesize_ids_batch(batches, **kw)  # warm
     walls, audio_sec = [], 0.0
     for _ in range(runs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = session.synthesize_ids_batch(batches)
+        out = session.synthesize_ids_batch(batches, **kw)
         walls.append(time.perf_counter() - t0)
         audio_sec = sum(a.size for a in out) / 22050
     wall = float(np.median(walls))
     return wall, audio_sec / wall
+
+
+def hold_batch(what, rows, voices, **kw):
+    """``rows`` (seed 7) through the batch path of the kernel, plain and
+    f32 ``voices``, in that order: equal lengths, and the kernel path's
+    min corr against the f32 decoder above 0.99 and not below the plain
+    path's (the plain bf16 path rounds every op's output; the kernels
+    keep f32 sums inside a stage).  Returns (the kernel path's audio, its
+    stage launches, the decode signatures it ran)."""
+    from mimic3_tpu_torch.ops import stage
+
+    session = voices[0].session
+    hits, before = session.stats.hits_snapshot(), stage.launches
+    outs = [session.synthesize_ids_batch(rows, seed=7, **kw)]
+    n = stage.launches - before
+    ran = sorted(k for k, c in session.stats.hits_snapshot().items()
+                 if k.startswith("decode:") and c > hits.get(k, 0))
+    outs += [v.session.synthesize_ids_batch(rows, seed=7, **kw)
+             for v in voices[1:]]
+    c_batch, c_kernel, c_plain = (
+        min(corr(a, b) for a, b in zip(outs[i], outs[j]))
+        for i, j in ((0, 1), (0, 2), (1, 2)))
+    say("check", f"{what} ({', '.join(ran)}): kernel path vs plain path "
+        f"min corr {c_batch:.6f}; against the f32 decoder: bf16 kernel "
+        f"path {c_kernel:.6f}, bf16 plain path {c_plain:.6f}")
+    if len({tuple(a.size for a in out) for out in outs}) != 1:
+        raise AssertionError(f"{what}: lengths disagree with plain")
+    if not (c_kernel > 0.99 and c_kernel >= c_plain):
+        raise AssertionError(f"{what}: bf16 audio strays from f32")
+    return outs[0], n, ran
+
+
+def main_shape_rows(voice) -> typing.List[typing.List[int]]:
+    """``MAIN_ROWS`` rows of ``MAIN_IDS`` ids, cut at staggered offsets
+    from the batch sentences' ids repeated."""
+    ids = [i for text in BATCH_TEXTS for i in phoneme_ids(voice, text)]
+    ids = ids * (2 + (MAIN_IDS + 7 * MAIN_ROWS) // len(ids))
+    return [ids[7 * r:7 * r + MAIN_IDS] for r in range(MAIN_ROWS)]
+
+
+def main_shape_scale(session, rows, seed: int) -> float:
+    """A ``length_scale`` at which ``rows`` under ``seed`` decode in the
+    ``MAIN_FRAMES`` bucket, their longest row at 3/4 of it or more."""
+    hop = session.model.hp.hop_length
+    scale, frames = 1.0, 0
+    for _ in range(8):
+        out = session.synthesize_ids_batch(rows, length_scale=scale,
+                                           seed=seed)
+        frames = max(a.size for a in out) // hop
+        if MAIN_FRAMES * 3 // 4 <= frames <= MAIN_FRAMES:
+            return scale
+        scale *= MAIN_FRAMES * 7 / 8 / frames
+    raise AssertionError(f"no length_scale put the rows in the "
+                         f"{MAIN_FRAMES}-frame bucket (last: {frames} "
+                         f"frames at {scale:.3f})")
 
 
 def device_ms_per_call(session, batches, calls: int = 3) -> float:
@@ -541,6 +601,7 @@ def main_path(root, voice_dir, plain_dir, card_line):
     the f32 stage launches of one deterministic call)."""
     from mimic3_tpu_torch.engine import Mimic3Settings, Mimic3TextToSpeechSystem
     from mimic3_tpu_torch.ops import stage
+    from mimic3_tpu_torch.runtime.session import hit_key
     from mimic3_tpu_torch.runtime.voice import load_from_directory
 
     stage.launches = 0
@@ -578,11 +639,23 @@ def main_path(root, voice_dir, plain_dir, card_line):
     default.voice = "en_US/test_low"
     def_wav = parse_wav(default.text_to_wav(TEXT))
     n_default = stage.launches - n_det - sum(per_call)
-    voice = load_from_directory(voice_dir)
+    # the same utterances with every stage on the plain path
+    ref_det = Mimic3TextToSpeechSystem(Mimic3Settings(
+        voices_directories=[str(root)], use_deterministic_compute=True,
+        noise_scale=0.0, noise_w=0.0,
+    ))
+    ref_det.voice = "en_US/plain_low"
+    ref_wav = parse_wav(ref_det.text_to_wav(TEXT))
+    c_det = corr(det_wav, ref_wav)
+    say("check", f"deterministic (f32) kernel path vs plain path: corr "
+        f"{c_det:.6f}")
+    if det_wav.size != ref_wav.size or not c_det >= 0.999:
+        raise AssertionError("deterministic audio disagrees with plain")
+    voices = [load_from_directory(d) for d in
+              (voice_dir, plain_dir, root / "en_US" / "f32_low")]
+    voice, plain_voice = voices[:2]
     batch_ids = [phoneme_ids(voice, t) for t in BATCH_TEXTS]
-    before = stage.launches
-    batch_out = voice.session.synthesize_ids_batch(batch_ids, seed=7)
-    n_batch = stage.launches - before
+    batch_out, n_batch, _ = hold_batch("batch of 4", batch_ids, voices)
     launches = stage.launches
     say("main", f"deterministic WAV {det_wav.size} samples "
         f"({n_det} launches), default bf16 WAV {def_wav.size} samples "
@@ -592,37 +665,18 @@ def main_path(root, voice_dir, plain_dir, card_line):
         raise AssertionError("the main path did not launch the stage kernel")
     if not all(a.size and np.isfinite(a).all() for a in batch_out):
         raise AssertionError("batch output empty or not finite")
-
-    # the same utterances with every stage on the plain path
-    ref_det = Mimic3TextToSpeechSystem(Mimic3Settings(
-        voices_directories=[str(root)], use_deterministic_compute=True,
-        noise_scale=0.0, noise_w=0.0,
-    ))
-    ref_det.voice = "en_US/plain_low"
-    ref_wav = parse_wav(ref_det.text_to_wav(TEXT))
-    plain_voice = load_from_directory(plain_dir)
-    plain_batch = plain_voice.session.synthesize_ids_batch(batch_ids, seed=7)
-    # the same noise and durations with an f32 decoder: the reference
-    # that both bf16 decoders approximate (the plain bf16 path rounds
-    # every op's output; the kernels keep f32 sums inside a stage)
-    f32_batch = load_from_directory(
-        root / "en_US" / "f32_low"
-    ).session.synthesize_ids_batch(batch_ids, seed=7)
-    c_det = corr(det_wav, ref_wav)
-    c_batch = min(corr(a, b) for a, b in zip(batch_out, plain_batch))
-    c_kernel = min(corr(a, b) for a, b in zip(batch_out, f32_batch))
-    c_plain = min(corr(a, b) for a, b in zip(plain_batch, f32_batch))
-    say("check", f"kernel path vs plain path: deterministic f32 corr "
-        f"{c_det:.6f}, bf16 batch min corr {c_batch:.6f}; against the f32 "
-        f"decoder: bf16 kernel path {c_kernel:.6f}, bf16 plain path "
-        f"{c_plain:.6f}")
-    if det_wav.size != ref_wav.size or not c_det >= 0.999:
-        raise AssertionError("deterministic audio disagrees with plain")
-    if not ([a.size for a in batch_out] == [a.size for a in plain_batch]
-            == [a.size for a in f32_batch]):
-        raise AssertionError("batch lengths disagree with plain")
-    if not (c_kernel > 0.99 and c_kernel >= c_plain):
-        raise AssertionError("bf16 batch audio strays from the f32 decoder")
+    # the benchmark's shape: MAIN_ROWS x MAIN_IDS ids, their durations
+    # scaled (on the plain voice) into the MAIN_FRAMES bucket
+    rows = main_shape_rows(voice)
+    big = dict(length_scale=main_shape_scale(plain_voice.session, rows, 7))
+    _, n_big, ran = hold_batch(
+        f"{MAIN_ROWS} x {MAIN_IDS} ids at length_scale "
+        f"{big['length_scale']:.3f}", rows, voices, **big)
+    launches += n_big
+    if n_big < 1 or hit_key("decode", MAIN_ROWS, MAIN_IDS,
+                            MAIN_FRAMES) not in ran:
+        raise AssertionError(f"the {MAIN_ROWS}-row call decoded {ran} with "
+                             f"{n_big} stage launches")
 
     proc = subprocess.run(
         [sys.executable, "-m", "mimic3_tpu_torch.cli",
@@ -639,10 +693,13 @@ def main_path(root, voice_dir, plain_dir, card_line):
     if cli_wav.size != det_wav.size:
         raise AssertionError("CLI WAV length differs from in-process")
 
+    # batches of 1 and 4, then the benchmark's shape (its seed holds its
+    # rows in the MAIN_FRAMES bucket)
     for label, v in (("kernel", voice), ("plain", plain_voice)):
-        for batch in (1, 4):
-            wall, rate = time_session(v.session, batch_ids[:batch], 5)
-            say("time", f"{label} path, default mode, batch {batch}: "
+        for ids, kw in ((batch_ids[:1], {}), (batch_ids, {}),
+                        (rows, dict(big, seed=7))):
+            wall, rate = time_session(v.session, ids, 5, **kw)
+            say("time", f"{label} path, default mode, batch {len(ids)}: "
                 f"{wall * 1000:.1f} ms per call, {rate:.1f} audio-s/s "
                 f"({card_line})")
     # deterministic mode: the f32 decoder, its last stage on the TF32
@@ -2532,65 +2589,6 @@ def serve_load_path(card_line: str) -> None:
     return None
 
 
-# the bench's run in the smoke: its defaults, the timed loops cut short
-BENCH_ITERS = 5
-BENCH_WARMUP = 2
-
-
-def bench_path(card_line: str) -> int:
-    """The port's bench on the card (phase 22): ``python -m
-    mimic3_tpu_torch.scripts.bench --iters 5 --warmup 2`` in its own
-    process, its other flags at their defaults (HiFi-GAN ``*_low``, bf16
-    decoder, stage gate at the session's, B = 16 x 128 phonemes -> 1024
-    frames; the batch-32, throughput-mode and single-stream points beside
-    it).  Prints its result line, then fails unless its outputs are correct,
-    its throughput is above 0, its whole-call MFU share lies in (0, 1.05],
-    the stage kernel launched at least once per call and both sides of its
-    stage A/B are present.  Returns the stage launches of its timed
-    headline calls, counted in its process."""
-    t0 = time.perf_counter()
-    rc, out = run_group(
-        [sys.executable, "-m", "mimic3_tpu_torch.scripts.bench", "--iters",
-         str(BENCH_ITERS), "--warmup", str(BENCH_WARMUP)],
-        timeout=300,
-    )
-    wall = time.perf_counter() - t0
-    if rc != 0:
-        raise AssertionError(f"the bench failed (rc={rc}):\n{out[-3000:]}")
-    result = next(json.loads(line) for line in reversed(out.splitlines())
-                  if line.startswith('{"metric"'))
-    print(json.dumps(result), flush=True)
-    extra = result["extra"]
-    ab = extra["stage_kernel_ab"]
-    say("bench", f"{result['metric']}: {result['value']:.1f} "
-        f"{result['unit']} per call, wall {extra['wall_ms']['median']:.2f} "
-        f"ms per call (median of {extra['wall_ms']['n']}), device "
-        f"{extra['decode_ms_device']:.2f} ms, idle share "
-        f"{extra['idle_share']:.3f}, MFU {extra['mfu_vs_bf16_peak']:.4f} "
-        f"whole call / {extra['mfu_device_vs_bf16_peak']:.4f} device "
-        f"({extra['flops_per_pipeline'] / 1e12:.3f} TFLOP per call); stage "
-        f"A/B wall {ab['kernel']['wall_ms']['median']:.2f} vs "
-        f"{ab['plain']['wall_ms']['median']:.2f} ms, device "
-        f"{ab['kernel']['device_ms']['median']:.2f} vs "
-        f"{ab['plain']['device_ms']['median']:.2f} ms, "
-        f"{ab['kernel']['stage_launches_per_call']:g} launches per call; "
-        f"correct {extra['correct']} ({extra['card']}); phase wall "
-        f"{wall:.1f} s")
-    if extra["correct"] is not True:
-        raise AssertionError(f"the bench's outputs: {extra['checks']}")
-    if not result["value"] > 0:
-        raise AssertionError("the bench measured no throughput")
-    if not 0 < extra["mfu_vs_bf16_peak"] <= 1.05:
-        raise AssertionError(
-            f"whole-call MFU share {extra['mfu_vs_bf16_peak']}")
-    if not extra["stage_launches_per_call"] >= 1:
-        raise AssertionError("the bench's calls launched no stage kernel")
-    if any(ab[side]["wall_ms"]["n"] < 1 or ab[side]["device_ms"] is None
-           for side in ("kernel", "plain")):
-        raise AssertionError(f"a side of the stage A/B is missing: {ab}")
-    return round(extra["stage_launches_per_call"] * extra["iters"])
-
-
 def host_probe(after: str, n: int = 4000) -> None:
     """The host's state after a phase: wall microseconds per tiny CUDA op
     (an add to a 1-element tensor, queued back to back), the Python
@@ -2624,7 +2622,7 @@ def main() -> int:
         raise RuntimeError("no CUDA device visible: this smoke run needs one")
     from mimic3_tpu_torch.ops import build, resblock, stage
     from mimic3_tpu_torch.runtime.session import STAGE_MAX_CHANNELS
-    from mimic3_tpu_torch.scripts.bench import card_line as card
+    from mimic3_tpu_torch.scripts.serve_load_test import card_line as card
 
     card_line = card()
     nvcc = subprocess.run(
@@ -2689,6 +2687,14 @@ def main() -> int:
                     f"C=64 stage ups 128->64, {frames} frames, B={batch}",
                     rng, 64, 128, False, batch, frames * 64, dtype,
                 )
+    # both bf16 stages at the benchmark's decode shape, drawn from their
+    # own generator so that the checks after them see what they saw
+    main_rng = np.random.RandomState(MAIN_ROWS)
+    for c, c_in, post, per_frame in ((32, 64, True, 128),
+                                     (64, 128, False, 64)):
+        check_stage(f"C={c} stage ups {c_in}->{c}, {MAIN_FRAMES} frames, "
+                    f"B={MAIN_ROWS}", main_rng, c, c_in, post, MAIN_ROWS,
+                    MAIN_FRAMES * per_frame, torch.bfloat16)
     for dtype in (torch.float32, torch.bfloat16):
         check_stage("C=64 stage alone, 256 frames, B=1", rng, 64, None,
                     False, 1, 256 * 128, dtype)
@@ -2754,7 +2760,7 @@ def main() -> int:
         for dtype in (torch.float32, torch.bfloat16)
     }
 
-    # -- 5-22. the paths -------------------------------------------------------------
+    # -- 5-21. the paths -------------------------------------------------------------
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         t0 = time.perf_counter()
@@ -2781,7 +2787,6 @@ def main() -> int:
                                        one_losses)
         launches["roundtrip"] = roundtrip_path(root, card_line)
         launches["serve_load"] = serve_load_path(card_line)
-        launches["bench"] = bench_path(card_line)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2824,8 +2829,6 @@ def main() -> int:
     rows[0]["launches_by_path"] = launches
     # null counts: the kernel ran in a process this script cannot read
     rows[0]["launches_not_counted"] = {"serve_load": "server subprocess"}
-    # the bench's count, read from its process: its timed headline calls
-    rows[0]["launches_counted_in_subprocess"] = ["bench"]
     rows[0]["bf16_stage_gate"] = gates[torch.bfloat16]
     rows[0]["f32_launches_per_deterministic_call"] = det_launches
     print(json.dumps({"kernels": rows}), flush=True)

@@ -849,8 +849,9 @@ class _DurationGraphs:
     """The batch path's duration pass, replayed from one CUDA graph per
     (device, rows, text bucket, speaker-conditioned or not).
 
-    A bucket is captured in a warmup, else on its second eager run (the
-    first does cuDNN's and the allocator's first-call work), and only
+    A bucket is captured in a warmup, else on the first call after its
+    signature has run (the first run, eager, does cuDNN's and the
+    allocator's first-call work; the session says which have), and only
     inside :func:`_sole_device_call`, so a serving process's other threads
     (continuation drivers, streams decoding their own windows) put
     nothing on the card meanwhile; a capture that finds them busy waits
@@ -868,7 +869,6 @@ class _DurationGraphs:
         self._stats = stats
         self._lock = threading.Lock()
         self._passes: typing.Dict[tuple, _StaticDurationPass] = {}
-        self._ran_eagerly: typing.Set[tuple] = set()
         self._failed: typing.Set[tuple] = set()
         self._streams: typing.Dict[torch.device, typing.Any] = {}
         self._pools: typing.Dict[torch.device, typing.Any] = {}
@@ -886,14 +886,15 @@ class _DurationGraphs:
         capture: bool = False,
     ) -> typing.Tuple[torch.Tensor, torch.Tensor, str]:
         """One shard's durations and totals, and how the pass ran:
-        ``replay``, ``capture`` or ``eager``.  With ``capture`` (a
-        warmup) a bucket is captured at its first run."""
+        ``replay``, ``capture`` or ``eager``.  With ``capture`` (a warmup,
+        or a bucket whose signature has run before) a bucket not yet
+        captured is captured at this run."""
         key = (str(replica.device), *ids.shape, g is not None)
         with self._lock:
             out, how = None, "eager"
             entry = self._passes.get(key)
             if self.enabled and key not in self._failed and (
-                entry is not None or capture or key in self._ran_eagerly
+                entry is not None or capture
             ):
                 out, how = self._graphed(
                     key, entry, replica, ids, lengths, g, seed,
@@ -904,7 +905,6 @@ class _DurationGraphs:
                     replica.params, ids, lengths, seed, length_scale,
                     noise_w, g=g,
                 )
-                self._ran_eagerly.add(key)
         self._stats.record_duration_graph(
             {"replay": "replayed", "capture": "captured"}.get(how, how)
         )
@@ -1093,10 +1093,6 @@ class TorchVitsSession:
             getattr(config.tpu, "speculative_decode", True)
         )
         self._ema_frames_per_phoneme: typing.Optional[float] = None
-        # decode signatures that have run as a warmup or a mandatory
-        # decode; speculation dispatches only these (the reference's
-        # compiled-decode set), so it never runs a new shape first
-        self._decode_keys_run: typing.Set[str] = set()
         # speculative decodes: dispatched, used, fell back (bucket too
         # small or truncated), skipped (signature never run), and
         # overlapped (the totals reached the host while the speculative
@@ -1112,15 +1108,14 @@ class TorchVitsSession:
         self._call_counter = 0
         self._lock = threading.Lock()
         self._multispeaker = config.model.is_multispeaker
-        # signatures (hit keys) dispatched so far, warmup included
+        # signatures (hit keys) run so far, warmup included: after a
+        # warmup, the buckets a request rounds up to (padding only); the
+        # decodes speculation may dispatch, so it never runs a new shape
+        # first; the duration buckets captured as CUDA graphs on next run
         self._run_keys: typing.Set[str] = set()
         # len(_run_keys) when the last warmup finished; None before one
         self._warmup_baseline: typing.Optional[int] = None
         self._hot_path_logged = 0
-        # signatures known to have run (warmup, then every dispatch);
-        # once set, a request whose natural bucket is not in it rounds up
-        # to the nearest warmed bucket (padding only)
-        self._warmed_keys: typing.Optional[typing.Set[str]] = None
 
     @classmethod
     def get_shared(
@@ -1182,17 +1177,18 @@ class TorchVitsSession:
             for rep, (i, _) in zip(self._replicas, self.mesh.local_shards())
         ]
 
-    # -- signatures, warmed set, fallback ------------------------------------------
+    # -- signatures run, fallback ----------------------------------------------
 
     def _note_run(self, key: str) -> None:
         """Record one dispatch of signature ``key``: the /api/stats hit
-        table, the distinct signatures run, and the warmed set once a
-        warmup has made one."""
+        table and the signatures run."""
         self.stats.record_hit(key)
         with self._lock:
             self._run_keys.add(key)
-            if self._warmed_keys is not None:
-                self._warmed_keys.add(key)
+
+    def _has_run(self, key: str) -> bool:
+        with self._lock:
+            return key in self._run_keys
 
     def jit_executable_count(self) -> int:
         """Distinct signatures (``hit_key`` strings) this session has run,
@@ -1229,13 +1225,17 @@ class TorchVitsSession:
         candidates: typing.Iterable[typing.Tuple[int, str]],
         current: int,
     ) -> int:
-        """First candidate bucket whose signature is warmed, else
-        ``current``; a fallback is counted in ``bucket_fallbacks``."""
+        """After a warmup, the first candidate bucket whose signature has
+        run, else ``current``; a fallback is counted in
+        ``bucket_fallbacks``."""
         with self._lock:
-            warmed = self._warmed_keys
-            if warmed is None or self.allow_bucket_growth or natural in warmed:
+            if (
+                self._warmup_baseline is None
+                or self.allow_bucket_growth
+                or natural in self._run_keys
+            ):
                 return current
-            warmed = set(warmed)
+            warmed = set(self._run_keys)
         for bucket, used in candidates:
             if used in warmed:
                 if self.stats.record_bucket_fallback(natural, used) == 1:
@@ -1292,19 +1292,28 @@ class TorchVitsSession:
             return None
         return [slice(i, i + max_bb) for i in range(0, batch, max_bb)]
 
-    def _truncate(
-        self, id_sequences: typing.Sequence[typing.Sequence[int]]
-    ) -> typing.Sequence[typing.Sequence[int]]:
+    def _prepare(
+        self,
+        id_sequences: typing.Sequence[typing.Sequence[int]],
+        speaker_ids: typing.Optional[typing.Sequence[typing.Optional[int]]],
+        seed: typing.Optional[int],
+        kind: str,
+        f: typing.Optional[int] = None,
+    ) -> typing.Tuple[int, np.ndarray, np.ndarray, np.ndarray, int]:
+        """A call's host preamble: the rows truncated to the largest text
+        bucket and padded (:meth:`_pad`), and the call's seed: (rows,
+        ids, lengths, sid, seed)."""
         max_text = self.text_buckets[-1]
         n_long = sum(1 for s in id_sequences if len(s) > max_text)
-        if self.allow_bucket_growth or not n_long:
-            return id_sequences
-        _LOGGER.warning(
-            "Truncating %d phoneme sequence(s) to the largest text bucket "
-            "(%d)",
-            n_long, max_text,
-        )
-        return [list(s)[:max_text] for s in id_sequences]
+        if n_long and not self.allow_bucket_growth:
+            _LOGGER.warning(
+                "Truncating %d phoneme sequence(s) to the largest text "
+                "bucket (%d)",
+                n_long, max_text,
+            )
+            id_sequences = [list(s)[:max_text] for s in id_sequences]
+        ids, lengths, sid = self._pad(id_sequences, speaker_ids, kind, f)
+        return len(id_sequences), ids, lengths, sid, self._next_seed(seed)
 
     def _pad(
         self,
@@ -1400,12 +1409,10 @@ class TorchVitsSession:
         span) and ``device_work``: the rows' audio and the frame bucket
         decoded."""
         with tracing.span("session.prepare"):
-            id_sequences = self._truncate(id_sequences)
-            batch = len(id_sequences)
-            ids, lengths, sid = self._pad(id_sequences, speaker_ids,
-                                          "duration")
+            batch, ids, lengths, sid, call_seed = self._prepare(
+                id_sequences, speaker_ids, seed, "duration"
+            )
             b_bucket, t_bucket = ids.shape
-            call_seed = self._next_seed(seed)
             if not self.allow_bucket_growth:
                 max_frames_cap = min(max_frames_cap, self.frame_buckets[-1])
             # each shard's rows on its replica's device
@@ -1425,16 +1432,18 @@ class TorchVitsSession:
         call.set(t_bucket=t_bucket, seed=call_seed, speakers=speakers)
 
         with tracing.span("session.duration") as duration:
+            dur_key = hit_key("duration", b_bucket, t_bucket)
+            ran = self._has_run(dur_key)
             waits, hows = [], set()
             for sh in shards:
                 sh.durations, totals, how = self._duration_graphs.run(
                     sh.replica, sh.ids, sh.lengths, sh.g, call_seed,
-                    length_scale, noise_w,
+                    length_scale, noise_w, capture=ran,
                 )
                 hows.add(how)
                 waits.append(_start_host_copy(totals))
             duration.set(graph=",".join(sorted(hows)))
-            self._note_run(hit_key("duration", b_bucket, t_bucket))
+            self._note_run(dur_key)
 
         def decode(num_frames: int):
             # every shard at the one frame bucket, on its own device
@@ -1507,11 +1516,10 @@ class TorchVitsSession:
                         )
                 # round up to the nearest warmed decode bucket
                 f_bucket = self._fallback_f(b_bucket, t_bucket, f_bucket)
-                dec_key = hit_key("decode", b_bucket, t_bucket, f_bucket)
-                self._note_run(dec_key)
                 result = decode(f_bucket)
-                with self._lock:
-                    self._decode_keys_run.add(dec_key)
+                self._note_run(
+                    hit_key("decode", b_bucket, t_bucket, f_bucket)
+                )
         call.set(f_bucket=f_bucket, speculation=outcome)
         with tracing.span("session.audio_to_host"):
             audio_np = self._all_rows(np.concatenate(
@@ -1561,7 +1569,7 @@ class TorchVitsSession:
         )
         key = hit_key("decode", b_bucket, t_bucket, bucket)
         with self._lock:
-            ran = key in self._decode_keys_run
+            ran = key in self._run_keys
             outcome = "dispatched" if ran else "skipped"
             self.speculation[outcome] += 1
         if not ran:
@@ -1749,16 +1757,13 @@ class TorchVitsSession:
         window0 = first_cf + 2 * overlap
         with device_work(self.deterministic):
             with tracing.span("session.prepare"):
-                id_sequences = self._truncate(id_sequences)
-                batch = len(id_sequences)
                 # the text bucket rounds up to a warmed stream start;
                 # continuation windows inherit it, so their signatures
                 # stay warmed too
-                ids, lengths, sid = self._pad(
-                    id_sequences, speaker_ids, "stream_start", window0
+                batch, ids, lengths, sid, call_seed = self._prepare(
+                    id_sequences, speaker_ids, seed, "stream_start", window0
                 )
                 b_bucket, t_bucket = ids.shape
-                call_seed = self._next_seed(seed)
                 ids_t, lengths_t, sid_t = (
                     self._put(ids), self._put(lengths), self._sid(sid)
                 )
@@ -1974,11 +1979,13 @@ class TorchVitsSession:
         replicas = list({id(r): r for r in self._replicas}.values())
         for b in batch_sizes:
             for t in tb:
+                dur_key = hit_key("duration", b, t)
                 fbs = [f for f in fb if want(hit_key("decode", b, t, f))]
-                if not (want(hit_key("duration", b, t)) or fbs):
+                if not (want(dur_key) or fbs):
                     continue
                 if graceful_shutdown_requested():
                     break
+                capture = want(dur_key) or self._has_run(dur_key)
                 with device_work(self.deterministic):
                     for rep in replicas:
                         ids, lengths, sid = inputs(b // self.dp, t, rep.device)
@@ -1986,8 +1993,7 @@ class TorchVitsSession:
                         durations, _, _ = self._duration_graphs.run(
                             rep, ids, lengths,
                             self.model.speaker_embedding(rep.params, sid),
-                            0, 1.0, 0.8,
-                            capture=want(hit_key("duration", b, t)),
+                            0, 1.0, 0.8, capture=capture,
                         )
                         for f in fbs:
                             self.model.decode_frames(
@@ -1995,12 +2001,8 @@ class TorchVitsSession:
                                 0.667, sid=sid,
                                 stage_weights=rep.stage_weights,
                             )
-                    warmed.add(hit_key("duration", b, t))
-                    for f in fbs:
-                        key = hit_key("decode", b, t, f)
-                        warmed.add(key)
-                        with self._lock:
-                            self._decode_keys_run.add(key)
+                    warmed.add(dur_key)
+                    warmed.update(hit_key("decode", b, t, f) for f in fbs)
         if chunk_windows:
             w0, w_cont = min(chunk_windows), max(chunk_windows)
             for b in batch_sizes:
@@ -2042,10 +2044,6 @@ class TorchVitsSession:
         with self._lock:
             self._run_keys |= warmed
             self._warmup_baseline = len(self._run_keys)
-            if self._warmed_keys is None:
-                self._warmed_keys = set(self._run_keys)
-            else:  # repeated warmups extend the known set
-                self._warmed_keys |= self._run_keys
         _LOGGER.info(
             "Warmup ran %d signatures in %.1fs", len(warmed), elapsed
         )

@@ -211,6 +211,17 @@ def start_server(
     )
 
 
+def card_line() -> str:
+    """The first card's name and power limit, as ``nvidia-smi`` gives
+    them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
 def make_voice(voice_dir: Path) -> None:
     """The test voice (seed-derived random weights, made on the CPU),
     with ``VOICE_TPU`` written into its config."""
@@ -288,7 +299,6 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
     args = parser.parse_args(argv)
 
     from ..runtime.session import resolve_device
-    from .bench import card_line
 
     resolve_device(args.device)  # no card: raise before any server
 

@@ -180,6 +180,27 @@ def test_second_run_captures_then_replays_the_eager_answers(voice, stubbed):
             np.testing.assert_array_equal(a, b)
 
 
+def test_dp_rows_on_one_device_capture_at_the_next_call(voice, stubbed):
+    """Two dp rows on one device share a bucket's graph: both shards run
+    eagerly at the bucket's first call, the next call captures with its
+    first shard and replays with its second."""
+    graphs, eager = (
+        _session(voice, device=None, mesh=make_mesh(dp=2, platform="cpu"))
+        for _ in range(2))
+    eager._duration_graphs.enabled = False
+    since = time.time_ns()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = [_synthesize(graphs, call) for call in CALLS]
+    assert _graph_attrs(since) == ["eager", "capture,replay", "replay",
+                                   "replay"]
+    assert stubbed == [(1, 32)]
+    assert _counts(graphs) == dict(captured=1, replayed=5, eager=2,
+                                   capture_failed=0)
+    for call, rows in zip(CALLS, got):
+        for a, b in zip(rows, _synthesize(eager, call)):
+            np.testing.assert_array_equal(a, b)
+
+
 def test_warmup_captures_every_warmed_bucket(voice, stubbed):
     session = _session(voice)
     session.warmup(batch_sizes=[1, 2], frame_buckets=[128])
@@ -255,8 +276,9 @@ def test_replayed_outputs_outlive_the_next_replay(voice, stubbed):
     ids = torch.tensor([ROWS[0], ROWS[1] + [0] * 6])
     lengths = torch.tensor([11, 5])
     with device_work():
-        hows = [graphs.run(rep, ids, lengths, None, s, 1.0, 0.8)[2]
-                for s in (1, 2)]
+        # the second pass is told its bucket has run, as the session does
+        hows = [graphs.run(rep, ids, lengths, None, s, 1.0, 0.8,
+                           capture=s > 1)[2] for s in (1, 2)]
         first = graphs.run(rep, ids, lengths, None, 3, 1.0, 0.8)
         kept = [t.clone() for t in first[:2]]
         second = graphs.run(rep, ids, lengths, None, 4, 2.5, 0.3)
@@ -393,8 +415,8 @@ def test_card_replay_equals_the_eager_pass(card_voices, layout):
     with device_work(session.deterministic):
         ids, lengths, g = _card_inputs(
             session, 16, 128, 0, [0] * 16 if speakers else None)
-        hows = [graphs.run(rep, ids, lengths, g, s, 1.0, 0.8)[2]
-                for s in (1, 2)]
+        hows = [graphs.run(rep, ids, lengths, g, s, 1.0, 0.8,
+                           capture=s > 1)[2] for s in (1, 2)]
         assert hows == ["eager", "capture"]
         # every input but the bucket differs from the capture's
         for seed, length_scale, noise_w in ((3, 4.75, 0.667), (2 ** 35, 0.7,
@@ -418,8 +440,9 @@ def test_card_two_buckets_back_to_back_keep_their_outputs(card_voices):
     with device_work(session.deterministic):
         a = _card_inputs(session, 16, 128, 1)
         b = _card_inputs(session, 4, 64, 2)
-        for inputs in (a, a, b, b):  # eager, then captured, each bucket
-            graphs.run(rep, *inputs, 0, 1.0, 0.8)
+        for inputs, ran in ((a, False), (a, True), (b, False), (b, True)):
+            # eager, then captured once it has run, each bucket
+            graphs.run(rep, *inputs, 0, 1.0, 0.8, capture=ran)
         first = graphs.run(rep, *a, 5, 4.75, 0.667)
         other = graphs.run(rep, *b, 6, 1.5, 0.8)
         again = graphs.run(rep, *a, 7, 3.0, 0.3)  # the same graph, anew

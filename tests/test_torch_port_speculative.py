@@ -11,6 +11,7 @@ warmed session runs no signature first after its warmup.
 """
 
 import copy
+import logging
 
 import numpy as np
 import pytest
@@ -61,13 +62,14 @@ def voice(tmp_path_factory):
     return config, params
 
 
-def _session(voice, **tpu) -> TorchVitsSession:
+def _session(voice, allow_bucket_growth=False, **tpu) -> TorchVitsSession:
     config, params = voice
     if tpu:
         config = copy.deepcopy(config)
         for k, v in tpu.items():
             setattr(config.tpu, k, v)
-    return TorchVitsSession(config, params, deterministic=True, device="cpu")
+    return TorchVitsSession(config, params, deterministic=True, device="cpu",
+                            allow_bucket_growth=allow_bucket_growth)
 
 
 def test_noise_is_bucket_independent(voice):
@@ -224,7 +226,7 @@ def test_speculation_only_reaches_signatures_that_ran(voice, monkeypatch):
         key = session_mod.hit_key("decode", ids.shape[0], ids.shape[1],
                                   num_frames)
         dispatched.append(
-            (phase["before_totals"], key, key in session._decode_keys_run)
+            (phase["before_totals"], key, key in session._run_keys)
         )
         return decode(params, ids, lengths, durations, num_frames, *a, **kw)
 
@@ -257,3 +259,108 @@ def test_no_signature_first_runs_after_warmup(voice):
     assert session.hot_path_compiles() == 0
     assert session.speculation["used"] >= 1
     assert session.speculation["skipped"] == 0
+
+
+# -- the signatures that have run ------------------------------------------------
+
+RUN_SET = dict(text_buckets=(16, 32, 64), frame_buckets=(128, 256, 512),
+               batch_buckets=(1, 2))
+DET = dict(noise_scale=0.0, noise_w=0.0)
+# a stream's windows: 8 + 2 x 48 frames, then 16 + 2 x 48
+STREAM = dict(chunk_frames=16, overlap=48, first_chunk_frames=8)
+
+
+@pytest.mark.parametrize("growth,warm,calls,fallback,hot", [
+    # IDS is in text bucket 32 and decodes at frame bucket 256; IDS[:9]
+    # is in text bucket 16 and decodes at 128
+    pytest.param(False, None, [[IDS], [IDS[:9]]], None, 0, id="no-warmup"),
+    pytest.param(False, dict(text_buckets=(64,)), [[IDS]],
+                 "duration:b1:t32->duration:b1:t64", 0, id="duration-text"),
+    pytest.param(False, dict(text_buckets=(32, 64)), [[IDS[:9]]],
+                 "duration:b1:t16->duration:b1:t32", 0, id="nearest-of-two"),
+    pytest.param(False, dict(text_buckets=(64,), frame_buckets=(128,),
+                             chunk_windows=(104, 112)), ["stream"],
+                 "stream_start:b1:t32:f104->stream_start:b1:t64:f104", 0,
+                 id="stream-start-text"),
+    pytest.param(False, dict(text_buckets=(32,), frame_buckets=(512,)),
+                 [[IDS]], "decode:b1:t32:f256->decode:b1:t32:f512", 0,
+                 id="decode-frames"),
+    pytest.param(False, dict(text_buckets=(16,)), [[IDS]], None, 2,
+                 id="no-warmed-candidate"),
+    pytest.param(True, dict(text_buckets=(64,)), [[IDS]], None, 2,
+                 id="bucket-growth"),
+    # a signature first run live after the warmup is a target too
+    pytest.param(False, dict(text_buckets=(64,)),
+                 [[IDS, IDS], [IDS[:9], IDS[:9]]],
+                 "duration:b2:t16->duration:b2:t32", 2,
+                 id="live-run-is-a-target"),
+])
+def test_bucket_rounds_up_to_a_signature_that_has_run(
+        voice, growth, warm, calls, fallback, hot):
+    """After a warmup a request whose natural bucket never ran rounds up
+    to the nearest that has (one ``bucket_fallbacks`` entry); before one,
+    with no such bucket, or with bucket growth allowed, it keeps its
+    own."""
+    session = _session(voice, allow_bucket_growth=growth, **RUN_SET)
+    if warm is not None:
+        session.warmup(batch_sizes=(1,), **warm)
+    for rows in calls:
+        if rows == "stream":
+            list(session.synthesize_ids_chunked(IDS, **DET, **STREAM))
+        else:
+            session.synthesize_ids_batch(rows, **DET)
+    fallbacks = session.stats.fallbacks_snapshot()
+    if fallback is None:
+        assert fallbacks == {}
+    else:
+        assert fallbacks[fallback] == 1
+    assert session.hot_path_compiles() == hot
+    if warm is None:
+        # each call's own duration pass and decode
+        assert session.jit_executable_count() == 2 * len(calls)
+
+
+def test_a_signature_first_run_live_counts_once_until_a_rewarm(voice):
+    session = _session(voice, **RUN_SET)
+    warm = dict(batch_sizes=(1,), text_buckets=(32,), frame_buckets=(256,))
+    session.warmup(**warm)
+    assert session.hot_path_compiles() == 0
+    for _ in range(2):  # a batch bucket the warmup left out
+        session.synthesize_ids_batch([IDS, IDS], **DET)
+        assert session.hot_path_compiles() == 2  # its duration and decode
+    n = session.jit_executable_count()
+    session.warmup(**warm)  # the baseline takes them in
+    assert session.hot_path_compiles() == 0
+    assert session.jit_executable_count() == n
+
+
+def test_a_live_decode_becomes_a_speculation_target(voice):
+    session = _session(voice, **RUN_SET)
+    session.synthesize_ids(IDS, **DET)  # no estimate yet: no speculation
+    assert session.speculation == dict.fromkeys(session.speculation, 0)
+    session.synthesize_ids(IDS, **DET)  # its decode ran on the first call
+    assert session.speculation["dispatched"] == 1
+    assert session.speculation["skipped"] == 0
+    assert session.speculation["used"] == 1
+
+
+@pytest.mark.parametrize("path", ["batch", "stream"])
+def test_rows_past_the_largest_text_bucket_are_truncated(
+        voice, caplog, path):
+    """Both paths cut a row to the largest text bucket (64 here), warn,
+    and give the cut row's audio."""
+    session = _session(voice, **RUN_SET)
+    row = (IDS * 4)[:70]
+
+    def synthesize(ids):
+        if path == "batch":
+            return session.synthesize_ids_batch(
+                [ids], length_scale=0.5, **DET)[0]
+        return np.concatenate(list(session.synthesize_ids_chunked(
+            ids, length_scale=0.5, **DET, **STREAM)))
+
+    with caplog.at_level(logging.WARNING, logger=session_mod.__name__):
+        got = synthesize(row)
+    assert any("Truncating 1 phoneme sequence(s)" in r.getMessage()
+               for r in caplog.records)
+    np.testing.assert_allclose(got, synthesize(row[:64]), atol=ATOL, rtol=0)
