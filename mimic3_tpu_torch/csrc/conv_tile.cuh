@@ -1,7 +1,9 @@
 // Tensor-core tile of a dilated conv1d for Hopper (sm_90a), shared by
 // csrc/resblock.cu and csrc/stage.cu (which replace the Pallas TPU
 // kernels mimic3_tpu/ops/resblock.py::fused_resblock_subblock and
-// mimic3_tpu/ops/stage.py::hifigan_stage_fused).
+// mimic3_tpu/ops/stage.py::hifigan_stage_fused).  The bf16 stage runs on
+// the warpgroup MMA (stage.cu) and takes from here only the fragment
+// loads (ldmatrix_x4, lrelu_bf16x2) and the accumulator layout.
 //
 // One conv over a tile of positions is an implicit GEMM, a sum over taps j
 // of A_j . W_j with
@@ -47,8 +49,7 @@
 // - TF32: for tap j, 8-deep K chunk kc and 8-wide N tile nt, the two B
 //   registers of w_hi then those of w_lo.
 // A warp reads 512 contiguous bytes per uint4, from device memory through
-// the read-only cache or, where the caller has staged them, from shared
-// memory (conflict-free: each lane reads its own 16 bytes).
+// the read-only cache.
 //
 // A warp item is MW 16-row M tiles x (8*NW output channels): per tap and
 // K chunk it issues MW ldmatrix.x4, NW/2 (bf16) or NW (TF32) weight loads
@@ -124,8 +125,8 @@ __device__ __forceinline__ uint32_t lrelu_bf16x2(uint32_t v) {
 // over this warp's item; A = lrelu(act) when kLrelu.  act has rows of ld
 // bf16; kcs = C_in / 16 (padded); wf is the conv's packed weights with
 // nps pairs of N tiles per K chunk, in device memory (read through the
-// read-only cache) or, with kSharedB, in shared memory.
-template <int MW, int NW, bool kLrelu, bool kSharedB = false>
+// read-only cache).
+template <int MW, int NW, bool kLrelu>
 __device__ __forceinline__ void conv_mma(float (&acc)[MW][NW][4],
                                          const __nv_bfloat16* act, int ld,
                                          int row0, int k, int dil, int kcs,
@@ -147,7 +148,7 @@ __device__ __forceinline__ void conv_mma(float (&acc)[MW][NW][4],
 #pragma unroll
       for (int q = 0; q < NW / 2; ++q) {
         const uint4* wq = wt + (kc * nps + q) * 32;
-        b[q] = kSharedB ? *wq : __ldg(wq);
+        b[q] = __ldg(wq);
       }
       uint32_t a[MW][4];
 #pragma unroll

@@ -22,32 +22,28 @@
 //
 // Three paths, by dtype and C (ops/stage.py says which reaches which):
 //
-// - bf16, C in {16, 32, 64}: every resblock conv on tensor cores
-//   (stage_mma_kernel), the implicit-GEMM tile of csrc/conv_tile.cuh.
-//   Three bf16 buffers [rows][C + 8] (stage input, resblock state, first
-//   conv's output) and an f32 [rows][C + 1] sum over resblocks replace the
-//   four f32 [C][L] buffers of the FFMA path, so a block holds a tile of
-//   up to 458 samples at C = 32 with conv_post.  Each conv computes only
-//   the rows the rest of its resblock needs (the tile plus the receptive
-//   half-width of the convs after it, rounded up to 16 rows), so the
-//   halo's recompute is about 1.13x at C = 32 (1.49x on the FFMA path,
-//   which runs every conv over the whole haloed tile).  The first conv of
-//   a step applies lrelu to its A fragments in registers (rounded to
-//   bf16, as torch's bf16 leaky_relu), its epilogue writes
-//   lrelu(conv + b), zero outside [0, T); the second adds the bias and
-//   the residual into the state (rounded to bf16, as the plain path
-//   does) or, at a resblock's last step, into the f32 sum.  The
-//   upsampler and conv_post stay on FFMA inside the same launch.  A
-//   warp item is 16 rows x all C channels; 16 warps (12 at C = 64), one
-//   block per SM.  At C <= 32 each conv's fragments are staged in shared
-//   memory once per block, and the launch plan is read once.  The
-//   upsampler gives a thread 8 channels at 4 positions of one phase, so a
-//   weight load feeds 32 FMAs.  The wrapper (ops/stage.py) picks the tile
-//   from a model of waves and warp rounds, so short inputs get short
-//   tiles and fill the card.  What bounds it now (measured by taking
-//   parts out, PERF.md): the MMA loop (mma.sync, not wgmma, 16-row items)
-//   takes about half the time, the FFMA upsampler about a fifth, the
-//   epilogues, barriers and staging the rest.
+// - bf16, C in {16, 32, 64}: every conv of the stage, the upsampler
+//   included, on Hopper's warpgroup MMA (stage_mma_kernel<C>, the
+//   bf16 section below says how).  Three bf16 buffers [rows][C + 8]
+//   (stage input, resblock state, the convs' operand) and an f32
+//   [rows][C + 1] sum over resblocks replace the four f32 [C][L] buffers
+//   of the FFMA path.  Three consumer warpgroups (one block per SM) own
+//   64-row M tiles and accumulate each in f32 registers across a
+//   conv's taps, A from the activation buffers (ldmatrix at the tap's row
+//   shift), B from a ring of C x C weight blocks in shared memory that one
+//   producer warp fills with bulk copies ahead of the MMAs.  Each conv
+//   computes only the rows the rest of its resblock needs, in whole
+//   64-row tiles.  The wrapper (ops/stage.py) picks the tile from a model
+//   of waves fit to the card's times, so short inputs get short tiles and
+//   fill the card.  What bounds it now
+//   (measured by taking parts out, scripts/ablate_stage.py, PERF.md): at
+//   the synth cells' 16 rows x 1024 frames the MMAs take 35-37% of the
+//   time (11.21 ms at C = 64, 8.09 at C = 32 on an H100 80GB HBM3 at
+//   700 W), the epilogues 28-30%, the ring's waits, fragment loads,
+//   barriers and staging the rest; without the ring (each block copied
+//   by the consumers, then a barrier) it takes 38-43% longer; one or two
+//   consumer warpgroups are slower than three at every tile swept.  Against
+//   its 2.26 / 1.13 ms bound it is at 20% / 14%.
 // - f32, C in {16, 32, 64}: the same stage on tensor cores in three TF32
 //   passes (stage_tf32_kernel; conv_tile.cuh says why three and how the
 //   sums stay f32-accurate).  The TF32 here is explicit in the kernel's
@@ -339,49 +335,32 @@ cudaError_t launch(const void* x, void* out, const float* w, const float* b,
 
 
 // ---------------------------------------------------------------------------
-// Tensor cores: the block plan and the phases both paths share
+// Tensor cores: what both paths share
 // ---------------------------------------------------------------------------
 
-// Warps of a block (one block per SM): 16 at C <= 32, 12 at C = 64 (the
-// fastest of 8/12/16 warps and 16/32-row items measured on the decoder's
-// stages; ops/stage.py mma_warps mirrors it).  A warp item is 16 rows x
-// all C channels.
-template <int C>
-constexpr int kMmaWarps = C <= 32 ? 16 : 12;
-constexpr int kItemRows = 16;
+constexpr int kMaxConvs = 64;  // rows of the launch plan a block holds
+constexpr int kItemRows = 16;  // rows of an mma.sync M tile (TF32 path)
 
-// Shared-memory plan of one block, shared by kernel and launcher.  Buffer
-// row i holds sequence position t0 - halo + i; the stage output y covers
-// rows [ylo, ylo + yn) with yn = tile + 2 * post_pad.  Every conv computes
-// a whole number of 16-row MMA tiles, so buffers carry 16 rows of slack
-// past L = tile + 2 * halo; rows past a conv's needed range feed only
-// rows past the next conv's.
-//   x0 [lb][ld] T      stage input (the upsampler's output when fused)
-//   s  [lb][ld] T      resblock state
-//   u  [lb][ld] T      lrelu(conv1 + b), the second conv's operand
+// Shared-memory plan of one TF32 block, shared by kernel and launcher.
+// Buffer row i holds sequence position t0 - halo + i; the stage output y
+// covers rows [ylo, ylo + yn) with yn = tile + 2 * post_pad.  Every conv
+// computes a whole number of 16-row MMA tiles, so buffers carry 16 rows of
+// slack past L = tile + 2 * halo; rows past a conv's needed range feed
+// only rows past the next conv's.
+//   x0 [lb][ld] f32    stage input (the upsampler's output when fused)
+//   s  [lb][ld] f32    resblock state
+//   u  [lb][ld] f32    lrelu(conv1 + b), the second conv's operand
 //   y  [yn][C + 1] f32 sum over resblocks (odd stride: the transposed
 //                      reads of the store and of conv_post spread banks)
 //   plan  the launch plan's rows, read once
-//   w  staged weight fragments:
-//      bf16: at C <= 32, the current conv's (max_k taps, at most
-//      22.5 KB), staged from device memory once per conv: every warp item
-//      reads them, and through L1 (which shared memory leaves small) they
-//      would come from L2 again and again.  At C = 64 a conv's fragments
-//      (90 KB) would cost the tile more than the L2 reads cost, so warps
-//      read them from device memory.  f32: none (stage_tf32_kernel says
-//      why).
-// T is bf16 or f32, the path's operand type.  The upsampler stages
-// lrelu(x_in) as f32 [c_in][lin] over s, u and y.
-constexpr int kMaxConvs = 64;  // rows of the launch plan a block holds
-template <int C>
-constexpr bool kStageWeights = C <= 32;
-
+//   w  w_uint4 staged uint4 (none in the shipped kernel: its weights come
+//      through the read-only cache, stage_tf32_kernel says why)
+// The upsampler stages lrelu(x_in) as f32 [c_in][lin] over s, u and y.
 struct StagePlan {
   int ld, lb, yn, ylo, ldy;
   size_t buf_bytes, plan_offset, w_offset, smem;
-  // elt: bytes of an x0 / s / u element (2 for bf16, 4 for f32); ld pads
-  // a row by 16 bytes so that eight rows start in eight bank groups.
-  // w_uint4: the staged weight fragments.
+  // elt: bytes of an x0 / s / u element; ld pads a row by 16 bytes so
+  // that eight rows start in eight bank groups
   __host__ __device__ StagePlan(int c, int tile, int halo, int post_pad,
                                 int elt, int w_uint4) {
     ld = c + 16 / elt;
@@ -396,44 +375,48 @@ struct StagePlan {
   }
 };
 
-// bf16: at C <= 32 the largest conv's fragments (max_k taps)
-__host__ __device__ inline int bf16_w_uint4(int c, int max_k) {
-  return c <= 32 ? max_k * (c / 16) * (c / 16) * 32 : 0;
-}
-
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float v0, float v1) {
   *reinterpret_cast<uint32_t*>(p) = conv_tile::pack_bf16x2(v0, v1);
 }
 __device__ __forceinline__ void store2(float* p, float v0, float v1) {
   *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
 }
-// eight channels in one 16-byte store (two for f32)
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
-  uint4 packed;
-  packed.x = conv_tile::pack_bf16x2(v[0], v[1]);
-  packed.y = conv_tile::pack_bf16x2(v[2], v[3]);
-  packed.z = conv_tile::pack_bf16x2(v[4], v[5]);
-  packed.w = conv_tile::pack_bf16x2(v[6], v[7]);
-  *reinterpret_cast<uint4*>(p) = packed;
-}
 __device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
   reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
   reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return conv_tile::unpack_bf16x2(*reinterpret_cast<const uint32_t*>(p));
 }
 __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 
-// x0 = the stage input for buffer rows [0, L), [row][ld] in T, zero
-// outside [0, T): the upsampler's output (on FFMA) when ups_k > 0, else x
-// transposed.  The upsampler stages lrelu(x_in) as f32 [c_in][lin] at
-// xin, which must not overlap x0.  Ends with a barrier.
+// x0[i][c] = x[row][c][pos0 + i] for buffer rows [0, L), zero outside
+// [0, T): the input tile transposed to [position][channel], two channels a
+// thread, neighbouring threads neighbouring positions
 template <int C, int kThreads, typename T>
+__device__ __forceinline__ void load_input(const T* __restrict__ x, T* x0,
+                                           int ld, int T_len, int L,
+                                           int pos0, int row) {
+  const T* xb = x + (size_t)row * C * T_len;
+  for (int idx = threadIdx.x; idx < (C / 2) * L; idx += kThreads) {
+    const int ci = idx / L * 2;
+    const int i = idx - ci / 2 * L;
+    const int t = pos0 + i;
+    float v0 = 0.f, v1 = 0.f;
+    if (t >= 0 && t < T_len) {
+      v0 = load_f(xb + (size_t)ci * T_len + t);
+      v1 = load_f(xb + (size_t)(ci + 1) * T_len + t);
+    }
+    store2(x0 + i * ld + ci, v0, v1);
+  }
+}
+
+// The TF32 path's x0 = the stage input for buffer rows [0, L), [row][ld]
+// f32, zero outside [0, T): the upsampler's output (on FFMA) when ups_k >
+// 0, else x transposed.  The upsampler stages lrelu(x_in) as f32
+// [c_in][lin] at xin, which must not overlap x0.  Ends with a barrier.
+template <int C, int kThreads>
 __device__ __forceinline__ void stage_input(
-    const T* __restrict__ x, T* x0, int ld, float* xin,
+    const float* __restrict__ x, float* x0, int ld, float* xin,
     const float* __restrict__ w, const float* __restrict__ b, int4 cu,
     int c_in, int t_in, int T_len, int ups_k, int ups_stride, int ups_pad,
     int L, int pos0, int row) {
@@ -442,13 +425,12 @@ __device__ __forceinline__ void stage_input(
     const int m_lo = floordiv(pos0 + ups_pad - (ups_k - 1), ups_stride);
     const int m_hi = floordiv(pos0 + L - 1 + ups_pad, ups_stride);
     const int lin = m_hi - m_lo + 1;
-    const T* xb = x + (size_t)row * c_in * t_in;
+    const float* xb = x + (size_t)row * c_in * t_in;
     for (int idx = threadIdx.x; idx < c_in * lin; idx += kThreads) {
       const int ci = idx / lin;
       const int m = m_lo + (idx - ci * lin);
-      xin[idx] = (m >= 0 && m < t_in)
-                     ? lrelu(load_f(xb + (size_t)ci * t_in + m))
-                     : 0.f;
+      xin[idx] = (m >= 0 && m < t_in) ? lrelu(xb[(size_t)ci * t_in + m])
+                                      : 0.f;
     }
     __syncthreads();
     // x0[i][co] = bias[co] + sum over taps j with (t + pad - j) % stride
@@ -511,20 +493,7 @@ __device__ __forceinline__ void stage_input(
       }
     }
   } else {
-    // transpose the input tile to [position][channel], two channels a
-    // thread, neighbouring threads neighbouring positions
-    const T* xb = x + (size_t)row * C * T_len;
-    for (int idx = threadIdx.x; idx < (C / 2) * L; idx += kThreads) {
-      const int ci = idx / L * 2;
-      const int i = idx - ci / 2 * L;
-      const int t = pos0 + i;
-      float v0 = 0.f, v1 = 0.f;
-      if (t >= 0 && t < T_len) {
-        v0 = load_f(xb + (size_t)ci * T_len + t);
-        v1 = load_f(xb + (size_t)(ci + 1) * T_len + t);
-      }
-      store2(x0 + i * ld + ci, v0, v1);
-    }
+    load_input<C, kThreads>(x, x0, ld, T_len, L, pos0, row);
   }
   __syncthreads();
 }
@@ -566,46 +535,476 @@ __device__ __forceinline__ void stage_output(
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on tensor cores
+// bf16 on Hopper's warpgroup MMA
 // ---------------------------------------------------------------------------
 
+// Consumer warpgroups of a block (plus one producer warp): three, the
+// fastest of one, two and three at every tile of both cell stages
+// (scripts/ablate_stage.py, PERF.md).  kSlots: the 64-row M tiles a
+// warpgroup holds per pass, so a pass covers at most 64 * kSlots *
+// kWarpgroups rows (its accumulators and two sets of A fragments fit the
+// 128 registers a thread has with 13 warps a block).  kRing: slots of the
+// weight ring, one C x C bf16 block each.  ops/stage.py WARPGROUPS,
+// WG_SLOTS and RING_SLOTS mirror all three.
+constexpr int kWarpgroups = 3;
 template <int C>
-__global__ void __launch_bounds__(32 * kMmaWarps<C>, 1)
+constexpr int kSlots = C == 64 ? 2 : C == 32 ? 4 : 6;
+template <int C>
+constexpr int kRing = C == 64 ? 4 : C == 32 ? 8 : 16;
+
+// Shared-memory plan of one wgmma block, shared by kernel and launcher.
+// Buffer row i holds sequence position t0 - halo + i, i < L = tile +
+// 2 * halo; the stage output y covers rows [ylo, ylo + yn), yn = tile +
+// 2 * post_pad.  A pass's last M tile reads past its needed rows; those
+// reads are clamped to the buffer (they feed only output rows the
+// epilogue drops), so the buffers carry no slack.
+//   x0 [L][ld] bf16    stage input (the upsampler's output when fused)
+//   s  [L][ld] bf16    resblock state
+//   u  [L][ld] bf16    every resblock conv's operand: lrelu(x0), lrelu(s)
+//                      or lrelu(conv1 + b)
+//   y  [yn][C + 1] f32 sum over resblocks
+//   xin [lin][ldi] bf16  lrelu(x_in) for the upsampler, over s, u and y
+//                      (room): ldi = c_in rounded up to C, + 8
+//   ring  kRing C x C bf16 weight blocks
+//   full, empty  one mbarrier each per ring slot
+//   plan  the launch plan's rows, read once
+struct WgmmaPlan {
+  int ld, L, yn, ylo, ldy, ldi;
+  size_t buf_bytes, room, ring_offset, bar_offset, plan_offset, smem;
+  __host__ __device__ WgmmaPlan(int c, int tile, int halo, int post_pad,
+                                int c_in, int ring) {
+    ld = c + 8;
+    L = tile + 2 * halo;
+    yn = tile + 2 * post_pad;
+    ylo = halo - post_pad;
+    ldy = c + 1;
+    ldi = (c_in + c - 1) / c * c + 8;
+    buf_bytes = (size_t)L * ld * 2;
+    const size_t y_bytes = (size_t)yn * ldy * 4;
+    room = 2 * buf_bytes + y_bytes;
+    ring_offset = (3 * buf_bytes + y_bytes + 127) / 128 * 128;
+    bar_offset = ring_offset + (size_t)ring * c * c * 2;
+    plan_offset = bar_offset + (size_t)ring * 16;
+    smem = plan_offset + kMaxConvs * 16;
+  }
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(conv_tile::smem_addr(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = conv_tile::smem_addr(bar);
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(conv_tile::smem_addr(bar)) : "memory");
+}
+// one thread: arrive on bar and expect `bytes` from a bulk copy into dst
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  const uint32_t b = conv_tile::smem_addr(bar);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(b), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(conv_tile::smem_addr(dst)), "l"(src), "r"(bytes), "r"(b)
+      : "memory");
+}
+// the consumer warpgroups' barrier (the producer warp does not take part)
+template <int NWG>
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(128 * NWG) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// until at most N of this warpgroup's committed MMA groups are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// Pin registers an MMA reads or writes to this point of the program: the
+// compiler may not move their other uses across it (so every write of an
+// operand lands before the fence that hands it to the MMAs, and the
+// accumulators are read only after the wait that completes them).
+template <int S, int NT>
+__device__ __forceinline__ void pin(float (&r)[S][NT][4]) {
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(r[s][j][e])::"memory");
+}
+template <int S, int NT>
+__device__ __forceinline__ void pin(uint32_t (&r)[S][NT][4]) {
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[s][j][e])::"memory");
+}
+// v as the compiler can see it is the same in every lane of the warp
+__device__ __forceinline__ int warp_uniform(int v) {
+  return __shfl_sync(0xffffffffu, v, 0);
+}
+
+// Descriptor of a B operand in shared memory, K-major without swizzle:
+// core matrices of 8 output channels x 16 bytes (8 input channels), each
+// 128 contiguous bytes; the K neighbour of a core matrix lies 128 bytes on
+// (leading byte offset), the next 8 output channels 256 bytes on (stride
+// byte offset).  ops/mma.py pack_wgmma_block lays a block out so.
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(256 >> 4) << 32);
+}
+
+// d += A . B for one m64nNk16 tile: A (64 x 16) from registers, each warp
+// of the warpgroup 16 rows in the mma.sync m16n8k16 A layout; B (16 x N)
+// from shared memory; d in the m16n8 accumulator layout per 8 columns
+__device__ __forceinline__ void wgmma_rs(float (&d)[2][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[4][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// The weight ring as the consumers see it: block i of the launch's stream
+// sits in slot i % R once full[slot] has completed phase i / R; every warp
+// of the consumers arrives on empty[slot] when its MMAs are done with it.
+// Blocks are taken and given back in stream order.
+template <int C, int R>
+struct Ring {
+  const unsigned char* slots;
+  uint64_t* full;
+  uint64_t* empty;
+  int next = 0;  // blocks taken so far
+  int freed = 0;  // blocks given back so far
+  // shared-memory address of the next block, once it has landed
+  __device__ __forceinline__ uint32_t acquire() {
+    const int slot = next % R;
+    mbar_wait(full + slot, (next / R) & 1);
+    __syncwarp();
+    ++next;
+    return conv_tile::smem_addr(slots + (size_t)slot * C * C * 2);
+  }
+  // the oldest block taken and not given back
+  __device__ __forceinline__ void release() {
+    if ((threadIdx.x & 31) == 0) mbar_arrive(empty + freed % R);
+    ++freed;
+  }
+};
+
+// One pass of the stage on the warpgroup MMA: acc[s] = sum over taps and
+// K blocks of A_tap . B_block for this warpgroup's 64-row M tiles m = g +
+// s * NWG < mt, where row r of M tile m reads activation row row0 +
+// tap * step + 64 m + r (clamped to [0, rows)) and K block kb its
+// channels [kb C, kb C + C).  The blocks come from the ring in the
+// order (tap, kb).  A fragments come from ldmatrix.x4 at any row, so a
+// tap's shift is a row offset.  Each 16-deep K chunk's MMAs are one
+// group, its fragments in one of two register sets by the chunk's parity:
+// before a set is loaded again, the group that read it is waited for
+// (wait_group 1), which also completes every MMA of the previous block,
+// whose ring slot then goes back.  One group stays in flight across
+// blocks and taps; the pass ends by waiting for all.
+// Everything that steers the MMAs is warp-uniform, and visibly so to the
+// compiler (which otherwise serialises the MMAs).
+template <int C, int NWG, int S, int R>
+__device__ __forceinline__ void wgmma_pass(float (&acc)[S][C / 8][4],
+                                           const __nv_bfloat16* act, int ld,
+                                           int rows, int row0, int step,
+                                           int taps, int kbs, int mt,
+                                           Ring<C, R>& ring) {
+  const int lane = threadIdx.x & 31;
+  const int g = warp_uniform(threadIdx.x / 128);  // warpgroup
+  const int wq = (threadIdx.x / 32) & 3;          // warp in the warpgroup
+  taps = warp_uniform(taps);
+  kbs = warp_uniform(kbs);
+  mt = warp_uniform(mt);
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int j = 0; j < C / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[s][j][e] = 0.f;
+  pin(acc);
+  // ldmatrix.x4: lanes 0-15 give rows 0-15 of the K chunk's first 8
+  // channels, lanes 16-31 the same rows' next 8
+  const int lane_row = row0 + 16 * wq + (lane & 15);
+  const int lane_col = (lane >> 4) * 8;
+  uint32_t a[2][S][1][4];  // fragments, by K chunk parity
+  for (int tap = 0; tap < taps; ++tap) {
+    for (int kb = 0; kb < kbs; ++kb) {
+      const uint32_t wb = ring.acquire();
+      uint32_t base[S];
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const int r = min(max(lane_row + tap * step + 64 * (g + s * NWG), 0),
+                          rows - 1);
+        base[s] = conv_tile::smem_addr(act + r * ld + kb * C + lane_col);
+      }
+#pragma unroll
+      for (int kc = 0; kc < C / 16; ++kc) {
+        if (C / 16 == 1)
+          wgmma_wait<0>();
+        else
+          wgmma_wait<1>();
+        if (kc == (C / 16 == 1 ? 0 : 1) && ring.freed + 1 < ring.next)
+          ring.release();
+        uint32_t (&ak)[S][1][4] = a[kc & 1];
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          if (g + s * NWG >= mt) continue;
+          conv_tile::ldmatrix_x4(ak[s][0], base[s] + kc * 32);
+        }
+        pin(ak);
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          if (g + s * NWG >= mt) continue;
+          wgmma_rs(acc[s], ak[s][0], b_desc(wb + kc * (C / 8) * 256));
+        }
+        wgmma_commit();
+      }
+    }
+  }
+  wgmma_wait<0>();
+  pin(acc);
+  while (ring.freed < ring.next) ring.release();
+}
+
+// f(row, co, v0, v1) for each pair of this thread's accumulators (row of
+// the pass < n, channels co and co + 1) with the pass's bias added
+template <int C, int NWG, int S, typename F>
+__device__ __forceinline__ void each_pair(const float (&acc)[S][C / 8][4],
+                                          const float* __restrict__ bias,
+                                          int mt, int n, F&& f) {
+  const int lane = threadIdx.x & 31;
+  const int g = threadIdx.x / 128;
+  const int wq = (threadIdx.x / 32) & 3;
+  float bb[C / 8][2];
+#pragma unroll
+  for (int j = 0; j < C / 8; ++j) {
+    bb[j][0] = __ldg(bias + conv_tile::acc_col(j, 0));
+    bb[j][1] = __ldg(bias + conv_tile::acc_col(j, 1));
+  }
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    if (g + s * NWG >= mt) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 64 * (g + s * NWG) + 16 * wq + (lane >> 2) + 8 * h;
+      if (r >= n) continue;
+#pragma unroll
+      for (int j = 0; j < C / 8; ++j)
+        f(r, conv_tile::acc_col(j, 0), acc[s][j][2 * h] + bb[j][0],
+          acc[s][j][2 * h + 1] + bb[j][1]);
+    }
+  }
+}
+
+// The stage on the warpgroup MMA.  Every conv of the stage, the upsampler
+// included, is a sum over taps of [rows x C_in] . [C_in x C] products:
+// consumer warpgroups own 64-row M tiles and accumulate each in f32
+// registers across the conv's taps, A from the bf16 activation buffers
+// (ldmatrix at the tap's row shift), B from the weight ring.  One producer
+// warp streams the launch's weight blocks (pack_stage_weights: C x C bf16
+// each, already in the B layout, back to back in the order the passes
+// take them) into the ring with 1-D bulk copies, each slot signalled
+// through an mbarrier, so the next blocks land while the current ones'
+// MMAs run, across conv boundaries too.
+//
+// The upsampler (ConvTranspose1d, stride s, kernel K) is polyphase: the
+// outputs t with (t + pad) % s == r are a conv over input rows
+// floor((t + pad) / s) - a with the taps j = r + s a < K, one pass per
+// phase r, its input lrelu(x_in) staged as bf16 [row][channel] (rounded
+// as torch's bf16 leaky_relu), its weights rounded to bf16 (the plain
+// bf16 path computes the transposed conv in x's dtype) and its sum f32,
+// rounded to bf16 into x0.  Then the resblocks as in the TF32 path, each
+// conv computing only the rows the rest of its resblock needs, except
+// that every MMA reads its A operand from u as it stands and each conv's
+// input is activated once, not once per tap: u = lrelu(x0) at a
+// resblock's start; the first conv of a step writes lrelu(conv + b) into
+// u, zero outside [0, T); the second adds bias and residual into the
+// state s (rounded to bf16, as the plain path does) and writes lrelu(s)
+// into u, or at a resblock's last step adds into the f32 sum.  An
+// epilogue writes u only after a barrier that ends the pass's reads of
+// it.  conv_post and its tanh stay on FFMA (stage_output).
+template <int C>
+__global__ void __launch_bounds__(128 * kWarpgroups + 32, 1)
     stage_mma_kernel(const __nv_bfloat16* __restrict__ x,
                      void* __restrict__ out_ptr, const float* __restrict__ w,
-                     const float* __restrict__ b,
-                     const int4* plan, const uint4* __restrict__ frags,
-                     int c_in, int t_in,
-                     int T, int n_res, int n_steps, int ups_k,
+                     const float* __restrict__ b, const int4* plan,
+                     const __nv_bfloat16* __restrict__ blocks, int c_in,
+                     int t_in, int T, int n_res, int n_steps, int ups_k,
                      int ups_stride, int ups_pad, int has_post, int post_pad,
-                     int tile, int halo, int max_k) {
-  constexpr int NW = C / 8;  // one warp item: 16 rows x all C channels
-  constexpr int kcs = C / 16;
-  constexpr int kThreads = 32 * kMmaWarps<C>;
+                     int tile, int halo) {
+  constexpr int NWG = kWarpgroups;
+  constexpr int kThreads = 128 * NWG;  // the consumers
+  constexpr int S = kSlots<C>;
+  constexpr int R = kRing<C>;
+  constexpr int kBlock = C * C * 2;  // bytes of one weight block
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const StagePlan p(C, tile, halo, post_pad, 2, bf16_w_uint4(C, max_k));
+  const WgmmaPlan p(C, tile, halo, post_pad, c_in, R);
   __nv_bfloat16* x0 = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* s = x0 + p.lb * p.ld;
-  __nv_bfloat16* u = s + p.lb * p.ld;
+  __nv_bfloat16* s = x0 + p.L * p.ld;
+  __nv_bfloat16* u = s + p.L * p.ld;
   float* y = reinterpret_cast<float*>(smem_raw + 3 * p.buf_bytes);
-  uint4* wsm = reinterpret_cast<uint4*>(smem_raw + p.w_offset);
+  unsigned char* slots = smem_raw + p.ring_offset;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw + p.bar_offset);
+  uint64_t* empty = full + R;
   int4* plan_s = reinterpret_cast<int4*>(smem_raw + p.plan_offset);
   const int n_convs = (ups_k > 0) + 2 * n_res * n_steps + has_post;
-  for (int i = threadIdx.x; i < n_convs; i += kThreads) plan_s[i] = plan[i];
+  for (int i = threadIdx.x; i < n_convs; i += blockDim.x) plan_s[i] = plan[i];
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < R; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kThreads / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
   plan = plan_s;
-  const int L = tile + 2 * halo;
+  const int kb_ups = (c_in + C - 1) / C;  // K blocks of an upsampler tap
+  int n_blocks = ups_k * kb_ups;
+  for (int m = ups_k > 0; m < (ups_k > 0) + 2 * n_res * n_steps; ++m)
+    n_blocks += plan[m].z;
+
+  if (threadIdx.x >= kThreads) {
+    // the producer warp: one lane keeps the ring full
+    if (threadIdx.x == kThreads) {
+      for (int i = 0; i < n_blocks; ++i) {
+        const int slot = i % R;
+        if (i >= R) mbar_wait(empty + slot, (i / R - 1) & 1);
+        bulk_load(slots + (size_t)slot * kBlock,
+                  blocks + (size_t)i * (kBlock / 2), kBlock, full + slot);
+      }
+    }
+    return;
+  }
+
+  const int L = p.L;
   const int row = blockIdx.y;
   const int t0 = blockIdx.x * tile;
   const int pos0 = t0 - halo;  // sequence position of buffer row 0
+  Ring<C, R> ring{slots, full, empty};
+  float acc[S][C / 8][4];
   int conv = ups_k > 0;  // plan row of the next conv
-  stage_input<C, kThreads>(x, x0, p.ld, reinterpret_cast<float*>(s), w, b,
-                           plan[0], c_in, t_in, T, ups_k, ups_stride,
-                           ups_pad, L, pos0, row);
+  if (ups_k > 0) {
+    // lrelu(x_in) for every input row this tile's outputs read, as bf16
+    // [row][channel] over s, u and y, channels past c_in zero
+    const int m_lo = floordiv(pos0 + ups_pad - (ups_k - 1), ups_stride);
+    const int m_hi = floordiv(pos0 + L - 1 + ups_pad, ups_stride);
+    const int lin = m_hi - m_lo + 1;
+    const int cw = p.ldi - 8;
+    __nv_bfloat16* xin = s;
+    const __nv_bfloat16* xb = x + (size_t)row * c_in * t_in;
+    for (int idx = threadIdx.x; idx < (cw / 2) * lin; idx += kThreads) {
+      const int ci = idx / lin * 2;
+      const int m = m_lo + (idx - ci / 2 * lin);
+      float v0 = 0.f, v1 = 0.f;
+      if (m >= 0 && m < t_in) {
+        if (ci < c_in) v0 = lrelu(load_f(xb + (size_t)ci * t_in + m));
+        if (ci + 1 < c_in) v1 = lrelu(load_f(xb + (size_t)(ci + 1) * t_in + m));
+      }
+      store2(xin + (m - m_lo) * p.ldi + ci, v0, v1);
+    }
+    consumers_sync<NWG>();
+    const float* bias = b + plan[0].y;
+    for (int r = 0; r < ups_stride; ++r) {
+      // this phase's buffer rows i0 + s q, q < n, read input rows
+      // q0 + q - a for the taps j = r + s a
+      const int i0 = ((r - pos0 - ups_pad) % ups_stride + ups_stride) %
+                     ups_stride;
+      const int n = i0 < L ? (L - i0 + ups_stride - 1) / ups_stride : 0;
+      const int q0 = (pos0 + i0 + ups_pad - r) / ups_stride;
+      const int taps = r < ups_k ? (ups_k - r + ups_stride - 1) / ups_stride
+                                 : 0;
+      const int mt = (n + 63) / 64;
+      wgmma_pass<C, NWG, S, R>(acc, xin, p.ldi, lin, q0 - m_lo, -1, taps,
+                               kb_ups, mt, ring);
+      each_pair<C, NWG, S>(acc, bias, mt, n,
+                           [&](int q, int co, float v0, float v1) {
+        const int i = i0 + q * ups_stride;
+        const int t = pos0 + i;
+        const bool inside = t >= 0 && t < T;
+        store2(x0 + i * p.ld + co, inside ? v0 : 0.f, inside ? v1 : 0.f);
+      });
+    }
+  } else {
+    load_input<C, kThreads>(x, x0, p.ld, T, L, pos0, row);
+  }
+  consumers_sync<NWG>();
 
-  const int warp = threadIdx.x / 32;
-  const uint4* wf = frags;
   for (int r = 0; r < n_res; ++r) {
+    // u = lrelu(x0), the first conv's operand (rounded to bf16, as
+    // torch's bf16 leaky_relu): every MMA reads its A operand from u as
+    // it stands, each conv's input activated once and not per tap
+    for (int i = threadIdx.x; i < L * (C / 8); i += kThreads) {
+      const int off = i / (C / 8) * p.ld + i % (C / 8) * 8;
+      uint4 v = *reinterpret_cast<const uint4*>(x0 + off);
+      v.x = conv_tile::lrelu_bf16x2(v.x);
+      v.y = conv_tile::lrelu_bf16x2(v.y);
+      v.z = conv_tile::lrelu_bf16x2(v.z);
+      v.w = conv_tile::lrelu_bf16x2(v.w);
+      *reinterpret_cast<uint4*>(u + off) = v;
+    }
+    consumers_sync<NWG>();
     // the rows each conv must produce shrink by the padding of the convs
     // after it: ext = the resblock's receptive half-width still ahead
     int ext = 0;
@@ -621,75 +1020,53 @@ __global__ void __launch_bounds__(32 * kMmaWarps<C>, 1)
         ext -= pad;
         const int lo = p.ylo - ext;
         const int n = p.yn + 2 * ext;
+        const int mt = (n + 63) / 64;
         const bool last = step == n_steps - 1 && half == 1;
-        // stage the conv's fragments (the last barrier ended every read
-        // of the previous conv's); this lane's biases into registers
-        if (kStageWeights<C>) {
-          for (int i = threadIdx.x; i < cc.z * kcs * kcs * 32;
-               i += kThreads)
-            wsm[i] = __ldg(wf + i);
-        }
-        float bias[NW][2];
-#pragma unroll
-        for (int ni = 0; ni < NW; ++ni) {
-          bias[ni][0] = __ldg(b + cc.y + conv_tile::acc_col(ni, 0));
-          bias[ni][1] = __ldg(b + cc.y + conv_tile::acc_col(ni, 1));
-        }
-        __syncthreads();
-        for (int item = warp; item * kItemRows < n; item += kMmaWarps<C>) {
-          const int r0 = lo + item * kItemRows;
-          float acc[1][NW][4];
-          conv_tile::zero(acc);
-          const uint4* wc = kStageWeights<C> ? wsm : wf;
-          if (half == 0)
-            conv_tile::conv_mma<1, NW, true, kStageWeights<C>>(
-                acc, src, p.ld, r0 - pad, cc.z, cc.w, kcs, wc, kcs, 0);
-          else
-            conv_tile::conv_mma<1, NW, false, kStageWeights<C>>(
-                acc, u, p.ld, r0 - pad, cc.z, cc.w, kcs, wc, kcs, 0);
-#pragma unroll
-          for (int ni = 0; ni < NW; ++ni)
-#pragma unroll
-            for (int e = 0; e < 4; e += 2) {
-              const int i = r0 + conv_tile::acc_row(0, e);
-              const int co = conv_tile::acc_col(ni, e);
-              const int t = pos0 + i;
-              const bool inside = t >= 0 && t < T;
-              float v0 = acc[0][ni][e] + bias[ni][0];
-              float v1 = acc[0][ni][e + 1] + bias[ni][1];
-              if (half == 0) {
-                // lrelu(conv1), zero outside [0, T)
-                *reinterpret_cast<uint32_t*>(u + i * p.ld + co) =
-                    conv_tile::pack_bf16x2(inside ? lrelu(v0) : 0.f,
-                                           inside ? lrelu(v1) : 0.f);
-                continue;
-              }
-              // residual add onto the state
-              const float2 prev = conv_tile::unpack_bf16x2(
-                  *reinterpret_cast<const uint32_t*>(src + i * p.ld + co));
-              v0 = inside ? prev.x + v0 : 0.f;
-              v1 = inside ? prev.y + v1 : 0.f;
-              if (!last) {
-                *reinterpret_cast<uint32_t*>(s + i * p.ld + co) =
-                    conv_tile::pack_bf16x2(v0, v1);
-                continue;
-              }
-              // the resblock's output, into the mean over resblocks
-              float* yr = y + (i - p.ylo) * p.ldy + co;
-              if (r > 0) {
-                v0 += yr[0];
-                v1 += yr[1];
-              }
-              if (r == n_res - 1) {
-                v0 /= (float)n_res;
-                v1 /= (float)n_res;
-              }
-              yr[0] = v0;
-              yr[1] = v1;
+        wgmma_pass<C, NWG, S, R>(acc, u, p.ld, L, lo - pad, cc.w, cc.z, 1,
+                                 mt, ring);
+        consumers_sync<NWG>();  // every MMA is done reading u
+        if (half == 0) {
+          // u = lrelu(conv1 + b), zero outside [0, T)
+          each_pair<C, NWG, S>(acc, b + cc.y, mt, n,
+                               [&](int q, int co, float v0, float v1) {
+            const int i = lo + q;
+            const bool inside = pos0 + i >= 0 && pos0 + i < T;
+            store2(u + i * p.ld + co, inside ? lrelu(v0) : 0.f,
+                   inside ? lrelu(v1) : 0.f);
+          });
+        } else {
+          each_pair<C, NWG, S>(acc, b + cc.y, mt, n,
+                               [&](int q, int co, float v0, float v1) {
+            const int i = lo + q;
+            const bool inside = pos0 + i >= 0 && pos0 + i < T;
+            // residual add onto the state
+            const float2 prev = conv_tile::unpack_bf16x2(
+                *reinterpret_cast<const uint32_t*>(src + i * p.ld + co));
+            v0 = inside ? prev.x + v0 : 0.f;
+            v1 = inside ? prev.y + v1 : 0.f;
+            if (!last) {
+              // the state, and u = lrelu(state), the next conv's operand
+              const uint32_t h = conv_tile::pack_bf16x2(v0, v1);
+              *reinterpret_cast<uint32_t*>(s + i * p.ld + co) = h;
+              *reinterpret_cast<uint32_t*>(u + i * p.ld + co) =
+                  conv_tile::lrelu_bf16x2(h);
+              return;
             }
+            // the resblock's output, into the mean over resblocks
+            float* yr = y + (i - p.ylo) * p.ldy + co;
+            if (r > 0) {
+              v0 += yr[0];
+              v1 += yr[1];
+            }
+            if (r == n_res - 1) {
+              v0 /= (float)n_res;
+              v1 /= (float)n_res;
+            }
+            yr[0] = v0;
+            yr[1] = v1;
+          });
         }
-        wf += (size_t)cc.z * kcs * kcs * 32;
-        __syncthreads();
+        consumers_sync<NWG>();  // the next conv reads what this one wrote
       }
     }
   }
@@ -700,22 +1077,29 @@ __global__ void __launch_bounds__(32 * kMmaWarps<C>, 1)
 }
 
 template <int C>
-cudaError_t launch_mma(const void* x, void* out, const float* w,
-                       const float* b, const int4* plan, const void* frags,
-                       int batch, int c_in, int t_in, int T, int n_res,
-                       int n_steps, int ups_k, int ups_stride, int ups_pad,
-                       int has_post, int post_pad, int tile, int halo,
-                       int max_k, cudaStream_t stream) {
+cudaError_t launch_wgmma(const void* x, void* out, const float* w,
+                         const float* b, const int4* plan, const void* blocks,
+                         int batch, int c_in, int t_in, int T, int n_res,
+                         int n_steps, int ups_k, int ups_stride, int ups_pad,
+                         int has_post, int post_pad, int tile, int halo,
+                         cudaStream_t stream) {
+  const WgmmaPlan p(C, tile, halo, post_pad, c_in, kRing<C>);
+  // a pass's rows (at most L; an upsampler phase's fewer) must fit the
+  // warpgroups' M-tile slots, and the upsampler's staged input its room
+  if ((p.L + 63) / 64 > kSlots<C> * kWarpgroups)
+    return cudaErrorInvalidValue;
+  if (ups_k > 0 &&
+      (size_t)((p.L + ups_k - 2) / ups_stride + 2) * p.ldi * 2 > p.room)
+    return cudaErrorInvalidValue;
   auto kernel = stage_mma_kernel<C>;
-  const StagePlan p(C, tile, halo, post_pad, 2, bf16_w_uint4(C, max_k));
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((T + tile - 1) / tile, batch);
-  kernel<<<grid, 32 * kMmaWarps<C>, p.smem, stream>>>(
+  kernel<<<grid, 128 * kWarpgroups + 32, p.smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), out, w, b, plan,
-      static_cast<const uint4*>(frags), c_in, t_in, T, n_res, n_steps, ups_k,
-      ups_stride, ups_pad, has_post, post_pad, tile, halo, max_k);
+      static_cast<const __nv_bfloat16*>(blocks), c_in, t_in, T, n_res,
+      n_steps, ups_k, ups_stride, ups_pad, has_post, post_pad, tile, halo);
   return cudaGetLastError();
 }
 
@@ -925,47 +1309,47 @@ extern "C" int hifigan_stage_launch(const void* x, void* out, const void* w,
                                has_post, tile, halo, st);
 }
 
-// bf16 on tensor cores, C in {16, 32, 64}.  frags: the resblock convs'
-// MMA fragments (ops/mma.py) in launch order; w, b, plan as above (w is
-// read for the upsampler and conv_post only).  post_pad: (K - 1) / 2 of
-// conv_post (0 without it).  The tile plus 2 * post_pad is a multiple of
-// 16.  max_k: the largest K of the resblock convs.
+// bf16 on the warpgroup MMA, C in {16, 32, 64}.  blocks: the stage's
+// weight blocks (ops/stage.py pack_stage_weights: C x C bf16 each in the
+// wgmma B layout, the upsampler's taps by phase then the resblock convs'
+// taps, in launch order); w, b, plan as above (w is read for conv_post
+// only).  post_pad: (K - 1) / 2 of conv_post (0 without it).
 extern "C" int hifigan_stage_mma_launch(const void* x, void* out,
                                         const void* w, const void* b,
-                                        const void* plan, const void* frags,
+                                        const void* plan, const void* blocks,
                                         int batch, int c, int c_in, int t_in,
                                         int t_out, int n_res, int n_steps,
                                         int ups_k, int ups_stride,
                                         int ups_pad, int has_post,
                                         int post_pad, int tile, int halo,
-                                        int max_k, void* stream) {
+                                        void* stream) {
   const float* wf = static_cast<const float*>(w);
   const float* bf = static_cast<const float*>(b);
   const int4* pl = static_cast<const int4*>(plan);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (tile <= 0 || post_pad < 0 || (!has_post && post_pad != 0) ||
-      (tile + 2 * post_pad) % kItemRows != 0 || max_k <= 0 ||
+      (ups_k > 0 && ups_stride <= 0) ||
       (ups_k > 0) + 2 * n_res * n_steps + has_post > kMaxConvs)
     return (int)cudaErrorInvalidValue;
-#define STAGE_MMA_CASE(CH)                                                 \
+#define STAGE_WGMMA_CASE(CH)                                               \
   case CH:                                                                 \
-    return (int)launch_mma<CH>(x, out, wf, bf, pl, frags, batch, c_in,     \
-                               t_in, t_out, n_res, n_steps, ups_k,         \
-                               ups_stride, ups_pad, has_post, post_pad,    \
-                               tile, halo, max_k, st);
+    return (int)launch_wgmma<CH>(x, out, wf, bf, pl, blocks, batch, c_in,  \
+                                 t_in, t_out, n_res, n_steps, ups_k,       \
+                                 ups_stride, ups_pad, has_post, post_pad,  \
+                                 tile, halo, st);
   switch (c) {
-    STAGE_MMA_CASE(16)
-    STAGE_MMA_CASE(32)
-    STAGE_MMA_CASE(64)
+    STAGE_WGMMA_CASE(16)
+    STAGE_WGMMA_CASE(32)
+    STAGE_WGMMA_CASE(64)
     default:
       return (int)cudaErrorInvalidValue;
   }
-#undef STAGE_MMA_CASE
+#undef STAGE_WGMMA_CASE
 }
 
 // f32 on tensor cores (three TF32 passes), C in {16, 32, 64}.  frags: the
 // resblock convs' TF32 hi/lo fragments (ops/mma.py) in launch order.
-// Other arguments as hifigan_stage_mma_launch, less max_k.
+// Other arguments as hifigan_stage_mma_launch.
 extern "C" int hifigan_stage_tf32_launch(const void* x, void* out,
                                          const void* w, const void* b,
                                          const void* plan, const void* frags,

@@ -27,6 +27,18 @@ the hi pass, then those of the lo pass.  Channels are zero-padded to
 multiples of 16, as for bf16, so both paths share their launch plans.
 The result is an int32 tensor ``[K, Cin/8, Cout/8, 32, 4]`` holding the
 float32 bit patterns.
+
+bf16 for the warpgroup MMA (``wgmma``, the fused stage of
+``csrc/stage.cu``): a ``C x C`` block ``B[k, n]`` (input channel ``k``,
+output channel ``n``; ``C`` a multiple of 16) becomes the K-major B
+operand in shared memory without swizzle, as ``wgmma`` reads it through a
+matrix descriptor: 16-deep K chunk ``kc``, 8-wide N group ``ng``, K half
+``kh`` (a core matrix: 8 output channels x 16 bytes of 8 input channels,
+row ``n % 8``), so element ``(k, n)`` sits at bf16 index
+``((kc (C/8) + ng) 2 + kh) 64 + (n % 8) 8 + k % 8`` with ``k = 16 kc +
+8 kh + k % 8``.  A K chunk's operand starts at byte ``kc (C/8) 256``; the
+next K core matrix lies 128 bytes on (the descriptor's leading byte
+offset), the next N group 256 bytes on (its stride byte offset).
 """
 
 from __future__ import annotations
@@ -106,6 +118,20 @@ def pack_conv_fragments_tf32(w: torch.Tensor) -> torch.Tensor:
     n, kk, part = (i.to(w.device) for i in tf32_fragment_index(cin_p, cout_p))
     vals = parts[part, :, n, kk]  # [kc, nt, 32, 4, K]
     return vals.permute(4, 0, 1, 2, 3).contiguous().view(torch.int32)
+
+
+def pack_wgmma_block(b: torch.Tensor) -> torch.Tensor:
+    """``[..., C, C]`` blocks ``B[k, n]`` -> bf16 ``[..., C * C]``, each in
+    the wgmma B layout (module docstring), on b's device."""
+    c = b.shape[-1]
+    if b.shape[-2] != c or c % 16:
+        raise ValueError(f"a wgmma block is C x C with C % 16 == 0, "
+                         f"not {tuple(b.shape[-2:])}")
+    lead = b.shape[:-2]
+    v = b.detach().to(torch.bfloat16).reshape(*lead, c // 16, 2, 8, c // 8, 8)
+    n = len(lead)  # kc, ng, kh, n % 8, k % 8
+    v = v.permute(*range(n), n, n + 3, n + 1, n + 4, n + 2)
+    return v.reshape(*lead, c * c)
 
 
 def pad_bias(b, channels: int, device=None,

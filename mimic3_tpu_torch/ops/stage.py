@@ -15,9 +15,10 @@ its headers) and bound through ``ctypes``.  Nothing is built when this module is
 
 Which kernel a stage reaches, by x's dtype and C:
 
-- bf16, ``C`` in 16/32/64: ``stage_mma_kernel``, every resblock conv on
-  tensor cores (``mma.sync.m16n8k16``, the tile of ``csrc/conv_tile.cuh``,
-  weights packed as bf16 MMA fragments by :mod:`.mma`);
+- bf16, ``C`` in 16/32/64: ``stage_mma_kernel``, every conv of the stage,
+  the upsampler included, on Hopper's warpgroup MMA (``wgmma``, 64-row
+  tiles; weights packed once per voice as C x C bf16 blocks in the wgmma
+  B layout by :mod:`.mma`, streamed through a shared-memory ring);
 - float32, ``C`` in 16/32/64: ``stage_tf32_kernel``, the same on tensor
   cores in three TF32 passes (``mma.sync.m16n8k8`` on the hi/lo split of
   both operands, f32-accurate; weights packed as TF32 hi/lo fragments);
@@ -62,12 +63,18 @@ SUPPORTED_CHANNELS = (8, 16, 32, 64)
 MMA_CHANNELS = (16, 32, 64)
 # f32: 16-row M tiles a warp holds per conv (kTf32Slots in csrc/stage.cu)
 TF32_SLOTS = 2
+# bf16 (warpgroup MMA): the consumer warpgroups of a block, the 64-row M
+# tiles a warpgroup holds per pass and the weight ring's slots of one
+# C x C block each (kWarpgroups, kSlots and kRing in csrc/stage.cu)
+WARPGROUPS = 3
+WG_SLOTS = {16: 6, 32: 4, 64: 2}
+RING_SLOTS = {16: 16, 32: 8, 64: 4}
 # dynamic shared memory one block may use on Hopper
 _MAX_SMEM_BYTES = 232448
 _TILES = (256, 128, 64, 32)  # time tiles tried, largest first
 _SMS = 132  # streaming multiprocessors of an H100 SXM
-# tensor-core path: output rows per block (tile + 2 * conv_post padding),
-# multiples of the 16-row warp item, tried largest first
+# tensor-core paths: output rows per block (tile + 2 * conv_post padding),
+# multiples of 16, tried largest first
 _MMA_ROWS = tuple(range(512, 47, -16))
 
 # kernel launches since the last reset (read by chip_smoke.py)
@@ -112,15 +119,15 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.hifigan_stage_mma_launch
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * 6  # x, out, w, b, plan, fragments
-        + [ctypes.c_int] * 15
+        [ctypes.c_void_p] * 6  # x, out, w, b, plan, weight blocks
+        + [ctypes.c_int] * 14
         + [ctypes.c_void_p]  # stream
     )
     fn = lib.hifigan_stage_tf32_launch
     fn.restype = ctypes.c_int
     fn.argtypes = (
         [ctypes.c_void_p] * 6  # x, out, w, b, plan, fragments
-        + [ctypes.c_int] * 14  # as the bf16 launch, less max_k
+        + [ctypes.c_int] * 14
         + [ctypes.c_void_p]  # stream
     )
     return lib
@@ -139,11 +146,14 @@ class StageWeights:
     launch order (ups, then per resblock per step conv1/conv2, then
     post); ``b``: float32 biases; ``plan``: int32 ``[n_convs, 4]`` rows
     of (weight offset, bias offset, K, dilation).  ``fragments``: the
-    resblock convs again as MMA fragments (:mod:`.mma`) for the
-    tensor-core path of ``dtype``, back to back in launch order: bf16
-    fragments for bfloat16, TF32 hi/lo fragments for float32 (``None``
-    below 16 channels, where the FFMA kernel reads ``w``); ``convs``:
-    their (K, dilation) in that order.
+    weights again for the tensor-core path of ``dtype`` (``None`` below
+    16 channels, where the FFMA kernel reads ``w``): for bfloat16 the
+    stream of C x C bf16 wgmma blocks (:func:`.mma.pack_wgmma_block`,
+    int32 pairs) in the order the kernel's passes take them, the
+    upsampler's taps by phase (each split into ``ceil(Cin / C)`` K
+    blocks) then every resblock conv's taps; for float32 the resblock
+    convs' TF32 hi/lo fragments, back to back in launch order.
+    ``convs``: the resblock convs' (K, dilation) in launch order.
     """
 
     w: torch.Tensor
@@ -193,8 +203,6 @@ def pack_stage_weights(
     that activations of ``dtype`` reach."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"unsupported dtype {dtype}")
-    pack = (mma.pack_conv_fragments_tf32 if dtype == torch.float32
-            else mma.pack_conv_fragments)
     ws: typing.List[torch.Tensor] = []
     bs: typing.List[torch.Tensor] = []
     plan: typing.List[typing.Tuple[int, int, int, int]] = []
@@ -230,6 +238,8 @@ def pack_stage_weights(
         if ups_padding is None:
             ups_padding = (ups_kernel - ups_stride) // 2
         add(uw.permute(0, 2, 1), ups_params.get("bias"), channels, 1)
+        if dtype == torch.bfloat16 and channels in MMA_CHANNELS:
+            frags.append(_ups_blocks(uw, ups_stride))
     for rp, k, ds in zip(resblock_params, kernel_sizes, dilations):
         for j, d in enumerate(ds):
             for key, dil in (("convs1", d), ("convs2", 1)):
@@ -241,8 +251,14 @@ def pack_stage_weights(
                     )
                 add(p["weight"].permute(1, 2, 0), p.get("bias"), channels, dil)
                 convs.append((k, dil))
-                if channels in MMA_CHANNELS:
-                    frags.append(pack(p["weight"]).cpu())
+                if channels not in MMA_CHANNELS:
+                    continue
+                if dtype == torch.float32:
+                    frags.append(
+                        mma.pack_conv_fragments_tf32(p["weight"]).cpu())
+                else:  # one block per tap: B[ci, co] = W[co, ci, tap]
+                    frags.append(mma.pack_wgmma_block(
+                        p["weight"].permute(2, 1, 0)).cpu())
     post_kernel = 0
     if post_params is not None:
         pw = post_params["weight"]  # [1, C, K]
@@ -256,7 +272,7 @@ def pack_stage_weights(
         b=torch.cat(bs).to(device),
         plan=torch.tensor(plan, dtype=torch.int32).to(device),
         fragments=(
-            torch.cat([f.reshape(-1) for f in frags]).to(device)
+            _as_int32(torch.cat([f.reshape(-1) for f in frags])).to(device)
             if frags else None
         ),
         dtype=dtype,
@@ -272,6 +288,27 @@ def pack_stage_weights(
         ups_padding=ups_padding if ups_kernel else 0,
         has_post=post_params is not None,
     )
+
+
+def _ups_blocks(uw: torch.Tensor, stride: int) -> torch.Tensor:
+    """The upsampler's wgmma blocks (``uw``: ``[Cin, C, K]``, the
+    ConvTranspose1d weight) on the CPU, in the order of the kernel's
+    passes: phase r (the outputs t with (t + pad) % stride == r) takes the
+    taps j = r, r + stride, ... < K; each tap's ``B[ci, co] = uw[ci, co,
+    j]`` in K blocks of C input channels, zero-padded past Cin."""
+    c_in, c, k = uw.shape
+    kbs = -(-c_in // c)
+    padded = torch.zeros(kbs * c, c, k, dtype=uw.dtype, device=uw.device)
+    padded[:c_in] = uw.detach()
+    taps = [j for r in range(stride) for j in range(r, k, stride)]
+    blocks = padded[:, :, taps].permute(2, 0, 1).reshape(len(taps), kbs, c, c)
+    return mma.pack_wgmma_block(blocks).cpu()
+
+
+def _as_int32(t: torch.Tensor) -> torch.Tensor:
+    """bf16 weight blocks as int32 pairs (TF32 fragments are int32
+    already)."""
+    return t.view(torch.int32) if t.dtype == torch.bfloat16 else t
 
 
 def uses_mma(channels: int, dtype: torch.dtype) -> bool:
@@ -300,49 +337,167 @@ def _pick_tile(weights: StageWeights) -> int:
     )
 
 
-def mma_warps(channels: int, dtype: torch.dtype = torch.bfloat16) -> int:
-    """Warps of a tensor-core block: ``kMmaWarps`` (bf16) or
-    ``kTf32Warps`` (f32) in ``csrc/stage.cu``."""
-    if dtype == torch.float32:
-        return 16 if channels <= 32 else 8
-    return 16 if channels <= 32 else 12
+def mma_warps(channels: int, dtype: torch.dtype = torch.float32) -> int:
+    """Warps of a TF32 block: ``kTf32Warps`` in ``csrc/stage.cu`` (the
+    bf16 path runs :data:`WARPGROUPS` warpgroups)."""
+    if dtype != torch.float32:
+        raise ValueError("the bf16 stage runs warpgroups, not a warp count")
+    return 16 if channels <= 32 else 8
+
+
+def _post_pad(weights: StageWeights) -> int:
+    return (weights.post_kernel - 1) // 2 if weights.has_post else 0
 
 
 def _smem_regions(
-    weights: StageWeights, rows: int, dtype: torch.dtype
+    weights: StageWeights, rows: int, dtype: torch.dtype = torch.float32
 ) -> typing.Tuple[int, int]:
-    """(bytes of one tensor-core block's shared memory, bytes of its state,
+    """(bytes of one TF32 block's shared memory, bytes of its state,
     conv1 and sum buffers, over which the upsampler stages its input) for
-    ``rows`` output rows (``StagePlan`` in ``csrc/stage.cu``): three
-    buffers of the haloed tile plus 16 rows of slack in x's dtype (rows
-    padded by 16 bytes), the f32 sum over resblocks, the launch plan, and
-    the staged weight fragments (bf16 at C <= 32: the largest conv's)."""
+    ``rows`` output rows (``StagePlan`` in ``csrc/stage.cu``): three f32
+    buffers of the haloed tile plus 16 rows of slack (rows padded by 16
+    bytes), the f32 sum over resblocks and the launch plan."""
+    if dtype != torch.float32:
+        raise ValueError("the bf16 block plan is _wgmma_layout's")
     c = weights.channels
-    elt = 4 if dtype == torch.float32 else 2
-    post_pad = (weights.post_kernel - 1) // 2 if weights.has_post else 0
-    buffer_rows = rows - 2 * post_pad + 2 * weights.halo + 16
-    buf = buffer_rows * (c + 16 // elt) * elt
+    buffer_rows = rows - 2 * _post_pad(weights) + 2 * weights.halo + 16
+    buf = buffer_rows * (c + 4) * 4
     acts = 3 * buf + rows * (c + 1) * 4
-    plan = 64 * 16
-    if dtype == torch.bfloat16 and c <= 32:
-        w_bytes = max(k for k, _ in weights.convs) * (c // 16) ** 2 * 32 * 16
-    else:  # the fragments are read from device memory
-        w_bytes = 0
-    return -(-acts // 16) * 16 + plan + w_bytes, acts - buf
+    return -(-acts // 16) * 16 + 64 * 16, acts - buf
+
+
+def _wgmma_layout(
+    weights: StageWeights, rows: int
+) -> typing.Tuple[int, int, int]:
+    """(bytes of one wgmma block's shared memory, bytes of its room over
+    the state, conv1 and sum buffers, bytes of the upsampler's staged
+    input there) for ``rows`` output rows (``WgmmaPlan`` in
+    ``csrc/stage.cu``): three bf16 buffers of the haloed tile (rows padded
+    by 16 bytes, no slack), the f32 sum, the weight ring, its mbarriers
+    and the launch plan."""
+    c = weights.channels
+    length = rows - 2 * _post_pad(weights) + 2 * weights.halo
+    buf = length * (c + 8) * 2
+    y = rows * (c + 1) * 4
+    ring = RING_SLOTS[c]
+    smem = -(-(3 * buf + y) // 128) * 128 + ring * (c * c * 2 + 16) + 64 * 16
+    xin = 0
+    if weights.ups_kernel:
+        lin = (length + weights.ups_kernel - 2) // weights.ups_stride + 2
+        xin = lin * (-(-weights.in_channels // c) * c + 8) * 2
+    return smem, 2 * buf + y, xin
 
 
 def mma_smem_bytes(
     weights: StageWeights, rows: int, dtype: torch.dtype = torch.bfloat16
 ) -> int:
     """Shared memory of one tensor-core block for ``rows`` output rows
-    (``StagePlan`` in ``csrc/stage.cu``)."""
-    return _smem_regions(weights, rows, dtype)[0]
+    (``WgmmaPlan`` for bf16, ``StagePlan`` for f32, in
+    ``csrc/stage.cu``)."""
+    if dtype == torch.float32:
+        return _smem_regions(weights, rows, dtype)[0]
+    return _wgmma_layout(weights, rows)[0]
+
+
+def wgmma_passes(
+    weights: StageWeights, rows: int
+) -> typing.List[typing.Tuple[int, int]]:
+    """(rows the pass computes, weight blocks it takes) for every pass of
+    one bf16 block with ``rows`` output rows: each upsampler phase (at
+    most ``ceil(L / stride)`` rows of the haloed tile's L), then each
+    resblock conv (the output rows plus the receptive half-width of the
+    resblock's convs after it).  The kernel runs each pass in 64-row M
+    tiles."""
+    passes = []
+    length = rows - 2 * _post_pad(weights) + 2 * weights.halo
+    if weights.ups_kernel:
+        s, k = weights.ups_stride, weights.ups_kernel
+        kbs = -(-weights.in_channels // weights.channels)
+        for r in range(s):
+            passes.append((-(-length // s), len(range(r, k, s)) * kbs))
+    per_res = len(weights.convs) // weights.n_res
+    for r in range(weights.n_res):
+        convs = weights.convs[r * per_res:(r + 1) * per_res]
+        ext = sum(d * (k - 1) // 2 for k, d in convs)
+        for k, d in convs:
+            ext -= d * (k - 1) // 2
+            passes.append((rows + 2 * ext, k))
+    return passes
+
+
+# The bf16 block's time on one SM, in ns, as the wave model counts it
+# (:func:`_wgmma_block_ns`): a weight block takes the tensor cores 128 C^2
+# FLOPs per 64-row M tile at 989 TFLOP/s over 132 SMs, and a warpgroup a
+# fixed cost besides (its ring wait, fragment loads, MMA latency and
+# release) that the other warpgroups' MMAs hide; each pass's epilogue
+# costs per M tile and 8 channels a warpgroup writes back, plus its
+# barriers; staging the input and writing the output per element.  Fit
+# (6.6% rms) to the card's times of both cell stages at 16 x 1024 frames
+# and the last stage at 128 frames, over tiles of 64-512 rows (PERF.md).
+_SM_FLOPS_PER_NS = 989e12 / _SMS / 1e9
+_WG_BLOCK_NS = 300.0
+_EPILOGUE_NS = 160.0
+_PASS_NS = 500.0
+_IO_NS = 0.5
+
+
+def _wgmma_block_ns(weights: StageWeights, rows: int) -> float:
+    c, wgs = weights.channels, WARPGROUPS
+    t_mma = 128 * c * c / _SM_FLOPS_PER_NS
+    total = 0.0
+    for n, blocks in wgmma_passes(weights, rows):
+        mt = -(-n // 64)
+        mine = -(-mt // wgs)  # M tiles of the busiest warpgroup
+        total += blocks * max(mt * t_mma, _WG_BLOCK_NS + mine * t_mma)
+        total += mine * _EPILOGUE_NS * c / 8 + _PASS_NS
+    length = rows - 2 * _post_pad(weights) + 2 * weights.halo
+    return total + _IO_NS * (weights.in_channels * length + c * rows)
+
+
+def _pick_wgmma_rows(weights: StageWeights, t_out: int, batch: int) -> int:
+    """Output rows per block (tile + 2 * conv_post padding) for the bf16
+    stage: the least modelled time, waves of blocks over the SMs (one
+    block an SM) times a block's modelled time (:func:`_wgmma_block_ns`),
+    over the tiles that fit shared memory and the warpgroups' M-tile
+    slots.  Cached on the pack's shape (this runs on every launch)."""
+    return _pick_wgmma_rows_cached(
+        dataclasses.replace(weights, w=None, b=None, plan=None,
+                            fragments=None),
+        t_out, batch,
+    )
+
+
+@functools.lru_cache(maxsize=256)
+def _pick_wgmma_rows_cached(
+    weights: StageWeights, t_out: int, batch: int
+) -> int:
+    c = weights.channels
+    best = None
+    for rows in _MMA_ROWS:
+        tile = rows - 2 * _post_pad(weights)
+        smem, room, xin = _wgmma_layout(weights, rows)
+        if tile < 1 or smem > _MAX_SMEM_BYTES or xin > room:
+            continue
+        if -(-(tile + 2 * weights.halo) // 64) > WG_SLOTS[c] * WARPGROUPS:
+            continue  # a pass's rows exceed the warpgroups' slots
+        blocks = -(-t_out // tile) * batch
+        cost = -(-blocks // _SMS) * _wgmma_block_ns(weights, rows)
+        if best is None or cost < best[0]:
+            best = (cost, rows)
+        if tile >= t_out:
+            break  # longer tiles only add masked rows
+    if best is None:
+        raise ValueError(
+            f"no wgmma tile fits C={c}, halo={weights.halo} in shared memory"
+        )
+    return best[1]
 
 
 def _mma_rounds(weights: StageWeights, rows: int, warps: int) -> int:
-    """Warp rounds of one block's convs, weighted by K: each conv computes
-    its needed rows (the output rows plus the receptive half-width of the
-    resblock's convs after it) in 16-row items over the block's warps."""
+    """Warp rounds of one TF32 block's convs, weighted by K: each conv
+    computes its needed rows (the output rows plus the receptive
+    half-width of the resblock's convs after it) in 16-row items over the
+    block's warps."""
     total = 0
     per_res = len(weights.convs) // weights.n_res
     for r in range(weights.n_res):
@@ -357,12 +512,14 @@ def _mma_rounds(weights: StageWeights, rows: int, warps: int) -> int:
 
 def _pick_mma_rows(
     weights: StageWeights, t_out: int, batch: int,
-    dtype: torch.dtype = torch.bfloat16,
+    dtype: torch.dtype = torch.float32,
 ) -> int:
-    """Output rows per block (tile + 2 * conv_post padding) for the
-    tensor-core path of ``dtype``: the least modelled time, waves of
-    blocks over the SMs times a block's warp rounds; ties go to the longer
-    tile.  Cached on the pack's shape (this runs on every launch)."""
+    """Output rows per block (tile + 2 * conv_post padding) for the TF32
+    path: the least modelled time, waves of blocks over the SMs times a
+    block's warp rounds; ties go to the longer tile.  Cached on the
+    pack's shape (this runs on every launch)."""
+    if dtype != torch.float32:
+        raise ValueError("the bf16 stage's plan is _pick_wgmma_rows's")
     return _pick_mma_rows_cached(
         dataclasses.replace(weights, w=None, b=None, plan=None,
                             fragments=None),
@@ -374,17 +531,14 @@ def _pick_mma_rows(
 def _pick_mma_rows_cached(
     weights: StageWeights, t_out: int, batch: int, dtype: torch.dtype
 ) -> int:
-    post_pad = (weights.post_kernel - 1) // 2 if weights.has_post else 0
     warps = mma_warps(weights.channels, dtype)
     best = None
     for rows in _MMA_ROWS:
-        tile = rows - 2 * post_pad
+        tile = rows - 2 * _post_pad(weights)
         smem, room = _smem_regions(weights, rows, dtype)
         if tile < 1 or smem > _MAX_SMEM_BYTES:
             continue
-        if (dtype == torch.float32
-                and -(-(tile + 2 * weights.halo) // 16)
-                > TF32_SLOTS * warps):
+        if -(-(tile + 2 * weights.halo) // 16) > TF32_SLOTS * warps:
             continue  # a conv's rows exceed the warps' M-tile slots
         if weights.ups_kernel:
             # the upsampler stages lrelu(x_in) as f32 over the state,
@@ -540,10 +694,11 @@ def hifigan_stage_fused(
                     f"stage weights carry no {x.dtype} MMA fragments on "
                     f"{x.device}"
                 )
-            post_pad = (
-                (weights.post_kernel - 1) // 2 if weights.has_post else 0
-            )
-            rows = _pick_mma_rows(weights, t_out, batch, x.dtype)
+            post_pad = _post_pad(weights)
+            if x.dtype == torch.float32:
+                rows = _pick_mma_rows(weights, t_out, batch, x.dtype)
+            else:
+                rows = _pick_wgmma_rows(weights, t_out, batch)
             args = (
                 x.data_ptr(), out.data_ptr(),
                 weights.w.data_ptr(), weights.b.data_ptr(),
@@ -554,12 +709,10 @@ def hifigan_stage_fused(
                 int(weights.has_post), post_pad, rows - 2 * post_pad,
                 weights.halo,
             )
-            if x.dtype == torch.float32:
-                err = lib.hifigan_stage_tf32_launch(*args, stream)
-            else:
-                err = lib.hifigan_stage_mma_launch(
-                    *args, max(k for k, _ in weights.convs), stream
-                )
+            launch = (lib.hifigan_stage_tf32_launch
+                      if x.dtype == torch.float32
+                      else lib.hifigan_stage_mma_launch)
+            err = launch(*args, stream)
         else:
             tile = _pick_tile(weights)
             err = lib.hifigan_stage_launch(

@@ -3,11 +3,12 @@
 No profiler that looks inside a kernel runs on the card's machine, so this
 builds variants of ``csrc/stage.cu`` (and of the tile it includes) with
 one part taken out (their outputs are wrong; only their times count), with
-another warp count, or with another design choice, and times each beside
-the unchanged kernel at the decoder's fused stages:
+another warp or warpgroup count, or with another design choice, and times
+each beside the unchanged kernel at the decoder's fused stages:
 
-- bf16, 256-frame bucket, B=4: the last stage (ups 64->32 + stage + post)
-  and the C=64 stage with its upsampler 128->64;
+- bf16 (the warpgroup MMA): both stages at the synth cells' 16 rows x
+  1024 frames (the C=64 stage with its upsampler 128->64, the last stage
+  ups 64->32 + stage + post) and the last stage at 128 frames, B=1;
 - f32 (three TF32 passes): the last stage at 128 frames, B=1 (the
   deterministic main path) and at 256 frames, B=4, and the C=64 stage
   alone at 256 frames, B=1 (the widest f32 stage, the one where a single
@@ -20,6 +21,7 @@ the unchanged kernel at the decoder's fused stages:
 Random weights made with numpy from seed 0.
 
     python -m mimic3_tpu_torch.scripts.ablate_stage [--loops 20]
+        [--dtype bfloat16|float32]
 
 Prints the card, then one JSON line per shape: ms per call of each
 variant (CUDA events, after warm calls) and, in f32, its shares of the
@@ -44,7 +46,26 @@ from ..runtime.convert import to_torch_params
 
 KERNELS = (3, 7, 11)
 DILATIONS = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
-_WARPS = "constexpr int kMmaWarps = C <= 32 ? 16 : 12;"
+# the bf16 stage's MMA issue (stage.cu wgmma_pass); step is -1 in the
+# upsampler's passes alone
+_WGMMA = "          wgmma_rs(acc[s], ak[s][0], b_desc(wb + kc * (C / 8) * 256));"
+_WARPGROUPS = "constexpr int kWarpgroups = 3;"
+_WG_SLOTS = "constexpr int kSlots = C == 64 ? 2 : C == 32 ? 4 : 6;"
+# the ring's consumer side (stage.cu Ring::acquire) and its producer
+_ACQUIRE = """    const int slot = next % R;
+    mbar_wait(full + slot, (next / R) & 1);
+    __syncwarp();
+    ++next;
+    return conv_tile::smem_addr(slots + (size_t)slot * C * C * 2);"""
+_SYNC_ACQUIRE = """    const int slot = next % R;
+    uint4* dst = (uint4*)(slots + (size_t)slot * C * C * 2);
+    const uint4* blk = src + (size_t)next * (C * C / 8);
+    for (int i = threadIdx.x; i < C * C / 8; i += nthreads)
+      dst[i] = __ldg(blk + i);
+    asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");
+    asm volatile("bar.sync 1, %0;\\n" :: "r"(nthreads) : "memory");
+    ++next;
+    return conv_tile::smem_addr(slots + (size_t)slot * C * C * 2);"""
 _TF32_WARPS = "constexpr int kTf32Warps = C <= 32 ? 16 : 8;"
 _TF32_SLOTS = "constexpr int kTf32Slots = 2;"
 # the shipped TF32 tile (conv_tile.cuh tap_tf32): each K chunk's three
@@ -92,6 +113,15 @@ _STAGE_INPUT_F32 = "  stage_input<C, kThreads>(x, x0, p.ld, s, w, b, plan[0]"
 _PLAN_F32 = "  const StagePlan p(C, tile, halo, post_pad, 4, 0);\n"
 
 
+def _warpgroups(wgs: int, slots: typing.Dict[int, int]) -> "Variant":
+    return Variant([
+        ("stage.cu", _WARPGROUPS, f"constexpr int kWarpgroups = {wgs};"),
+        ("stage.cu", _WG_SLOTS,
+         f"constexpr int kSlots = C == 64 ? {slots[64]} : C == 32 ? "
+         f"{slots[32]} : {slots[16]};"),
+    ], wgs=(wgs, slots))
+
+
 def _tf32_shape(warps: int, slots: int) -> typing.List[typing.Tuple[str, str,
                                                                   str]]:
     return [("stage.cu", _TF32_WARPS, f"constexpr int kTf32Warps = {warps};"),
@@ -100,41 +130,58 @@ def _tf32_shape(warps: int, slots: int) -> typing.List[typing.Tuple[str, str,
 
 class Variant(typing.NamedTuple):
     """Text patches (file under csrc/, old, new), applied in order, each
-    to exactly one place; the warps of a block the wrapper must plan for
-    (None: unchanged); in f32, whether the TF32 fragments go through the
-    cp.async ring (the block plan then counts its two slots), and the
-    M-tile slots of a warp (None: unchanged)."""
+    to exactly one place; the warps of a TF32 block the wrapper must plan
+    for (None: unchanged); in f32, whether the TF32 fragments go through
+    the cp.async ring (the block plan then counts its two slots), and the
+    M-tile slots of a warp (None: unchanged); in bf16, the consumer
+    warpgroups of a block and the 64-row M tiles each holds per pass, by
+    C, that the wrapper must plan for (None: unchanged)."""
 
     patches: typing.List[typing.Tuple[str, str, str]]
     warps: typing.Optional[int] = None
     ring: bool = False
     slots: typing.Optional[int] = None
+    wgs: typing.Optional[typing.Tuple[int, typing.Dict[int, int]]] = None
 
 
 BF16_VARIANTS: typing.Dict[str, Variant] = {
     "kernel": Variant([]),
-    "no_mma": Variant([
-        ("stage.cu", "          if (half == 0)\n            conv_tile::conv_mma<",
-         "          if (false)\n            conv_tile::conv_mma<"),
-        ("stage.cu", "          else\n            conv_tile::conv_mma<",
-         "          else if (false)\n            conv_tile::conv_mma<"),
+    # every MMA of the stage (the ring still streams, the epilogues run)
+    "no_mma": Variant([("stage.cu", _WGMMA, "          if (false)\n  " + _WGMMA)]),
+    "no_upsampler_mma": Variant([
+        ("stage.cu", _WGMMA, "          if (step != -1)\n  " + _WGMMA)]),
+    # the ring replaced by synchronous staging: the consumers copy each
+    # block themselves, then meet at a barrier; no producer copies
+    "sync_staging": Variant([
+        ("stage.cu", "  int next = 0;  // blocks taken so far\n",
+         "  int next = 0;  // blocks taken so far\n"
+         "  const uint4* src;\n  int nthreads;\n"),
+        ("stage.cu", _ACQUIRE, _SYNC_ACQUIRE),
+        ("stage.cu", "  Ring<C, R> ring{slots, full, empty};",
+         "  Ring<C, R> ring{slots, full, empty, 0,\n"
+         "                  reinterpret_cast<const uint4*>(blocks), "
+         "kThreads};"),
+        ("stage.cu", "    if (threadIdx.x == kThreads) {", "    if (false) {"),
     ]),
-    "no_upsampler_fma": Variant([
-        ("stage.cu", "          const float* xr = xin + ci * lin + r;",
-         "          if (ci >= 0) continue;\n"
-         "          const float* xr = xin + ci * lin + r;"),
+    # the passes' epilogues (bias, activation, residual, sum) left out;
+    # each accumulator still feeds a sum that is almost never stored, or
+    # the compiler would drop the MMAs whose results go unread
+    "no_epilogue": Variant([
+        ("stage.cu", "  float bb[C / 8][2];\n",
+         "  float sink = 0.f;\n  float bb[C / 8][2];\n"),
+        ("stage.cu", "      for (int j = 0; j < C / 8; ++j)\n"
+         "        f(r, conv_tile::acc_col(j, 0),",
+         "      for (int j = 0; j < C / 8; ++j) {\n"
+         "        sink += acc[s][j][2 * h] + acc[s][j][2 * h + 1];\n"
+         "        if (false) f(r, conv_tile::acc_col(j, 0),"),
+        ("stage.cu", "          acc[s][j][2 * h + 1] + bb[j][1]);\n    }\n  }\n}",
+         "          acc[s][j][2 * h + 1] + bb[j][1]);\n      }\n    }\n  }\n"
+         "  if (sink == 1.2345e-30f) f(0, 0, sink, sink);\n}"),
     ]),
-    "no_weight_staging": Variant([
-        ("stage.cu", "            wsm[i] = __ldg(wf + i);", "            ;"),
-    ]),
-    "no_fragment_lrelu": Variant([
-        ("stage.cu", "conv_tile::conv_mma<1, NW, true,",
-         "conv_tile::conv_mma<1, NW, false,"),
-    ]),
-    "warps_8": Variant(
-        [("stage.cu", _WARPS, "constexpr int kMmaWarps = 8;")], 8),
-    "warps_16": Variant(
-        [("stage.cu", _WARPS, "constexpr int kMmaWarps = 16;")], 16),
+    # one or two consumer warpgroups (three shipped), each holding more
+    # M tiles so that a pass still covers the rows the wrapper plans
+    "wgs_1": _warpgroups(1, {16: 12, 32: 8, 64: 4}),
+    "wgs_2": _warpgroups(2, {16: 8, 32: 5, 64: 3}),
 }
 F32_VARIANTS: typing.Dict[str, Variant] = {
     "kernel": Variant([]),
@@ -144,7 +191,11 @@ F32_VARIANTS: typing.Dict[str, Variant] = {
         ("stage.cu", "          else\n            conv_tile::tap_tf32<",
          "          else if (false)\n            conv_tile::tap_tf32<"),
     ]),
-    "no_upsampler_fma": BF16_VARIANTS["no_upsampler_fma"],
+    "no_upsampler_fma": Variant([
+        ("stage.cu", "          const float* xr = xin + ci * lin + r;",
+         "          if (ci >= 0) continue;\n"
+         "          const float* xr = xin + ci * lin + r;"),
+    ]),
     # where the MMA sums go: one accumulator over the whole conv, or a
     # fresh one per tap, instead of one per K chunk
     "one_accumulator": Variant([
@@ -233,8 +284,10 @@ def build_variants(
 def using(lib: ctypes.CDLL, variant: Variant):
     """Route ``hifigan_stage_fused`` to ``lib`` (and its block plan)."""
     saved = (stage._LIB, stage.mma_warps, stage.TF32_SLOTS,
-             stage._smem_regions)
+             stage._smem_regions, stage.WARPGROUPS, stage.WG_SLOTS)
     stage._LIB = lib
+    if variant.wgs is not None:
+        stage.WARPGROUPS, stage.WG_SLOTS = variant.wgs
     if variant.warps is not None:
         stage.mma_warps = lambda channels, dtype=None: variant.warps
     if variant.slots is not None:
@@ -249,12 +302,14 @@ def using(lib: ctypes.CDLL, variant: Variant):
 
         stage._smem_regions = with_ring
     stage._pick_mma_rows_cached.cache_clear()
+    stage._pick_wgmma_rows_cached.cache_clear()
     try:
         yield
     finally:
-        (stage._LIB, stage.mma_warps, stage.TF32_SLOTS,
-         stage._smem_regions) = saved
+        (stage._LIB, stage.mma_warps, stage.TF32_SLOTS, stage._smem_regions,
+         stage.WARPGROUPS, stage.WG_SLOTS) = saved
         stage._pick_mma_rows_cached.cache_clear()
+        stage._pick_wgmma_rows_cached.cache_clear()
 
 
 def _cuda_ms(fn: typing.Callable[[], torch.Tensor], loops: int) -> float:
@@ -317,23 +372,27 @@ def _bar_share(got: torch.Tensor, ref: torch.Tensor) -> float:
 def main(argv: typing.Optional[typing.Sequence[str]] = None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--loops", type=int, default=20)
+    parser.add_argument("--dtype", choices=("bfloat16", "float32"),
+                        help="only this dtype's variants (default: both)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device visible: this profile needs one")
     dev = torch.device("cuda")
     torch.backends.cudnn.allow_tf32 = False
     print(f"device: {torch.cuda.get_device_name(0)}", flush=True)
-    libs = {torch.bfloat16: (BF16_VARIANTS, build_variants(BF16_VARIANTS,
-                                                           "bf16")),
-            torch.float32: (F32_VARIANTS, build_variants(F32_VARIANTS,
-                                                         "f32"))}
+    libs = {dt: (variants, build_variants(variants, str(dt)[6:]))
+            for dt, variants in ((torch.bfloat16, BF16_VARIANTS),
+                                 (torch.float32, F32_VARIANTS))
+            if args.dtype in (None, str(dt)[6:])}
     rng = np.random.RandomState(0)
     result = {}
     for dtype, name, c, c_in, post, batch, t_in in (
-        (torch.bfloat16, "last stage, 256 frames, B=4", 32, 64, True, 4,
-         256 * 128),
-        (torch.bfloat16, "C=64 stage + ups, 256 frames, B=4", 64, 128, False,
-         4, 256 * 64),
+        (torch.bfloat16, "C=64 stage + ups, 1024 frames, B=16", 64, 128,
+         False, 16, 1024 * 64),
+        (torch.bfloat16, "last stage, 1024 frames, B=16", 32, 64, True, 16,
+         1024 * 128),
+        (torch.bfloat16, "last stage, 128 frames, B=1", 32, 64, True, 1,
+         128 * 128),
         (torch.float32, "last stage, 128 frames, B=1", 32, 64, True, 1,
          128 * 128),
         (torch.float32, "last stage, 256 frames, B=4", 32, 64, True, 4,
@@ -341,15 +400,18 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> dict:
         (torch.float32, "C=64 stage alone, 256 frames, B=1", 64, None, False,
          1, 256 * 128),
     ):
+        if dtype not in libs:
+            continue
         rb, kw = _stage(rng, c, c_in, post, dev)
         weights = stage.pack_stage_weights(rb, KERNELS, DILATIONS,
                                            device=dev, dtype=dtype, **kw)
         x = torch.from_numpy(
             rng.randn(batch, c_in or c, t_in).astype(np.float32)
         ).to(dev, dtype)
-        plain = stage.hifigan_stage_plain(rb, x, KERNELS, DILATIONS, **kw)
-        exact = stage.hifigan_stage_plain(
-            _double(rb), x.double(), KERNELS, DILATIONS, **_double(kw))
+        if dtype == torch.float32:
+            plain = stage.hifigan_stage_plain(rb, x, KERNELS, DILATIONS, **kw)
+            exact = stage.hifigan_stage_plain(
+                _double(rb), x.double(), KERNELS, DILATIONS, **_double(kw))
         variants, built = libs[dtype]
         times, shares, shares_f64 = {}, {}, {}
         for variant, lib in built.items():

@@ -226,6 +226,41 @@ def test_stage_tensor_cores_at_table_shapes(cuda, dtype, c, c_in, post,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize(
+    "c,c_in,post,batch,t_in",
+    [
+        (64, 128, False, 16, 1024 * 64),  # the synth cells' C=64 stage
+        (32, 64, True, 16, 1024 * 128),  # and last stage, 16 x 1024 frames
+        (32, 64, True, 1, 128 * 128),  # the kernel table's shape
+        (32, 64, True, 3, 12345),  # ragged: 24690 samples, no 64-row tile
+        (64, None, False, 2, 1001),
+    ],
+)
+def test_wgmma_stage_matches_plain(cuda, c, c_in, post, batch, t_in):
+    """The bf16 stage on the warpgroup MMA at the synth cells' decode, the
+    kernel table's shape and ragged lengths, held to the plain bf16 path
+    at ``chip_smoke.py``'s bar (correlation > 0.999), one launch each."""
+    rng = np.random.RandomState(c + t_in)
+    kw = _stage(rng, c, c_in, post, cuda)
+    rb = kw.pop("resblock_params")
+    weights = tstage.pack_stage_weights(rb, KERNELS, DILATIONS, device=cuda,
+                                        dtype=torch.bfloat16, **kw)
+    x = torch.from_numpy(
+        rng.randn(batch, c_in or c, t_in).astype(np.float32)
+    ).to(cuda, torch.bfloat16)
+    ref = tstage.hifigan_stage_plain(rb, x, KERNELS, DILATIONS, **kw)
+    rows = tstage._pick_wgmma_rows(weights, ref.shape[-1], batch)
+    before = tstage.launches
+    got = tstage.hifigan_stage_fused(rb, x, KERNELS, DILATIONS,
+                                     weights=weights, **kw)
+    torch.cuda.synchronize()
+    assert tstage.launches == before + 1
+    ref, got = ref.float().cpu().numpy(), got.float().cpu().numpy()
+    assert got.shape == ref.shape and np.isfinite(got).all()
+    assert _corr(got, ref) > 0.999, rows
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize(
     "c,t,b,k,d",

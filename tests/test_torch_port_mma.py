@@ -134,6 +134,14 @@ def _stage_tree(rng, c, c_in, post):
     return [port["resblocks"][str(r)] for r in range(3)], kw
 
 
+def _unpack_block(flat: torch.Tensor, c: int) -> torch.Tensor:
+    """A bf16 wgmma block ``[C * C]`` (``mma.pack_wgmma_block``: K chunk,
+    N group, K half, then a core matrix of 8 output x 8 input channels)
+    -> float32 ``B[k, n]``."""
+    v = flat.float().view(c // 16, c // 8, 2, 8, 8)  # kc, ng, kh, n, k
+    return v.permute(0, 2, 4, 1, 3).reshape(c, c)
+
+
 def test_stage_pack_carries_fragments_in_launch_order():
     rng = np.random.RandomState(0)
     rb, kw = _stage_tree(rng, 32, 64, True)
@@ -141,18 +149,21 @@ def test_stage_pack_carries_fragments_in_launch_order():
     assert w.convs == tuple(
         (k, dil) for k in KERNELS for d in (1, 3, 5) for dil in (d, 1)
     )
-    off = 0
+    blocks = w.fragments.view(torch.bfloat16).view(-1, 32 * 32)
+    # the upsampler's 4 taps x 2 K blocks of 32 input channels come first
+    assert blocks.shape[0] == 4 * 2 + sum(k for k, _ in w.convs)
+    off = 8
     for r, k in enumerate(KERNELS):
         for j in range(3):
             for key in ("convs1", "convs2"):
-                n = k * 2 * 2 * 32 * 4
-                frags = w.fragments[off:off + n].view(k, 2, 2, 32, 4)
-                torch.testing.assert_close(
-                    _unpack(frags, 32, 32),
-                    _bf16(rb[r][key][str(j)]["weight"]),
-                )
-                off += n
-    assert off == w.fragments.numel() and w.post_kernel == 7
+                wt = rb[r][key][str(j)]["weight"]  # [Cout, Cin, K]
+                for tap in range(k):
+                    torch.testing.assert_close(
+                        _unpack_block(blocks[off], 32),
+                        _bf16(wt[:, :, tap].t()),
+                    )
+                    off += 1
+    assert off == blocks.shape[0] and w.post_kernel == 7
     # C=8 is under the MMA depth: no fragments, the FFMA path
     rb8, kw8 = _stage_tree(rng, 8, None, False)
     assert tstage.pack_stage_weights(rb8, KERNELS, DILATIONS,
@@ -186,10 +197,13 @@ def test_stage_mma_tile_fits(c, c_in, post, t_out, batch):
     rng = np.random.RandomState(1)
     rb, kw = _stage_tree(rng, c, c_in, post)
     w = tstage.pack_stage_weights(rb, KERNELS, DILATIONS, **kw)
-    rows = tstage._pick_mma_rows(w, t_out, batch)
+    rows = tstage._pick_wgmma_rows(w, t_out, batch)
     post_pad = 3 if post else 0
     assert rows % 16 == 0 and rows - 2 * post_pad >= 1
     assert tstage.mma_smem_bytes(w, rows) <= tstage._MAX_SMEM_BYTES
+    # every pass fits the warpgroups' 64-row M-tile slots
+    slots = tstage.WG_SLOTS[c] * tstage.WARPGROUPS
+    assert all(-(-n // 64) <= slots for n, _ in tstage.wgmma_passes(w, rows))
 
 
 def test_build_key_covers_included_headers(tmp_path):
